@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one card and check it.
+
+    python3 chip_smoke.py                  # on a machine with an H100
+    python3 chip_smoke.py --cpu-rehearsal  # N=1024 on the CPU, plain versions
+
+The main path is bench.py's CKKS step: N=8192, CoeffModulus.create(8192,
+[50, 40, 40, 50]) with one special prime, seed range(71, 79), keygen,
+encode of [1.001] * slots at scale 2^40, public-key encrypt, broadcast to
+batch 128, the fused multiply + relinearize + rescale step, decrypt and
+decode.  The script
+
+1. prints the card (nvidia-smi name and power limit, torch and CUDA);
+2. builds the four kernels (nvcc, one process each, in parallel) and
+   prints each one's -Xptxas -v summary;
+3. drives the main path once with every launch counter set to 0 and reads
+   the counters after it, recording each kernel call from keygen through
+   decode;
+4. holds every distinct recorded kernel call (function, op, shapes)
+   against its plain PyTorch version on the same inputs on the card
+   (bit-exact), and times each call of the step both ways with CUDA
+   events beside the least time the card could take for the same work;
+5. checks the batch-2 step, multiply and square forms, bit for bit against
+   the port's plain path on the card, and decodes within 1e-4 of v^2;
+6. times the steady-state step at batch 128 (ops/s) and profiles it
+   (device time by kernel, device busy share);
+7. prints the kernels line and, last, the result line.
+
+Any mismatch raises and the script exits non-zero; it exits non-zero with
+no result when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 3.35 TB/s; 32-bit integer
+# multiply-adds at 64 lanes per SM (half the 128 FP32 lanes behind the
+# 67 TFLOP/s FP32 rate): 132 SMs * 64 * 1.98 GHz.
+HBM_BYTES_PER_S = 3.35e12
+INT32_IMAD_PER_S = 132 * 64 * 1.98e9
+
+# 32-bit IMADs per 64-bit operation (the reckoning PERF.md writes out):
+# low word of a 64x64 product 3, high word (__umul64hi) 4, full 128-bit 7;
+# Barrett mul_mod = full product 7 + barrett_reduce_128 24 = 31;
+# Shoup lazy multiply = high 4 + two low words 6 = 10.
+IMAD_MULMOD = 31
+IMAD_BARRETT128 = 24
+IMAD_SHOUP = 10
+IMAD_MAC = 7
+ELEMENTWISE_MULMODS = {"add": 0, "sub": 0, "neg": 0, "mul": 1, "muladd": 1,
+                       "addmul": 1, "barrett64": 0}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Recorder:
+    """Wraps every kernel wrapper wherever a module of the port holds it, so
+    one run of the main path yields the exact (phase, kernel, function,
+    args) of every kernel call, from keygen through decode.  ``remove``
+    puts the wrappers back, so that later phases time the step as a user
+    calls it."""
+
+    def __init__(self):
+        from gemini_seal_tpu_torch.models import pipelines
+        from gemini_seal_tpu_torch.ops import modops, ntt
+
+        kernel_of = {ntt.ntt_forward_lazy: "ntt", ntt.ntt_forward: "ntt",
+                     ntt.ntt_inverse_lazy: "ntt", ntt.ntt_inverse: "ntt",
+                     pipelines._tensor_product: "tensor_product",
+                     modops.contract_mulmod_128: "contract",
+                     modops.rns_elementwise: "elementwise"}
+        self.calls = []
+        self.phase = None
+        self._patched = []
+        wrapped = {id(fn): (fn, self._wrap(kernel, fn)) for fn, kernel in kernel_of.items()}
+        for name, mod in list(sys.modules.items()):
+            if name.split(".")[0] != "gemini_seal_tpu_torch" or mod is None:
+                continue
+            for attr, value in list(vars(mod).items()):
+                fn, wrapper = wrapped.get(id(value), (None, None))
+                if fn is value:
+                    setattr(mod, attr, wrapper)
+                    self._patched.append((mod, attr, fn))
+
+    def remove(self):
+        for mod, attr, fn in self._patched:
+            setattr(mod, attr, fn)
+        self._patched = []
+
+    def _wrap(self, kernel, fn):
+        def wrapped(*args, **kwargs):
+            if self.phase is not None:
+                self.calls.append((self.phase, kernel, fn, args, kwargs))
+            return fn(*args, **kwargs)
+        return wrapped
+
+
+def signature(args, kwargs):
+    """What tells two calls of one wrapper apart: the op, the tensors'
+    shapes and the table sizes."""
+    def sig(v):
+        if hasattr(v, "data_ptr"):
+            return tuple(v.shape)
+        if isinstance(v, (tuple, list)):
+            return tuple(sig(x) for x in v)
+        if hasattr(v, "coeff_count"):  # NTTTables
+            return ("tables", v.coeff_count, v.modulus.numel())
+        if hasattr(v, "ratio0"):  # LimbConstants
+            return ("limbs", v.p.numel())
+        return v
+    return tuple(sig(v) for v in args) + tuple(sorted((k, sig(v)) for k, v in kwargs.items()))
+
+
+def event_ms(torch, fn, reps: int) -> float:
+    """Mean device time of fn() over reps launches after a warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def profile_steps(torch, fn, steps: int, step_ms: float) -> dict:
+    """Device time by kernel over `steps` steady steps (torch.profiler's
+    device-side events only, so an operator and its kernel are not counted
+    twice) and the device's busy share of the unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [{"name": e.key[:80], "calls_per_step": e.count / steps,
+             "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r["device_ms_per_step"])
+    device_ms = sum(r["device_ms_per_step"] for r in rows)
+    return {"steps": steps, "step_ms": step_ms, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / step_ms, "by_kernel": rows}
+
+
+def tensors_of(fn_name, args, kwargs):
+    """The tensors a kernel call reads, the tables and constants included."""
+    out = []
+    for v in list(args) + list(kwargs.values()):
+        if hasattr(v, "data_ptr"):
+            out.append(v)
+        elif isinstance(v, (tuple, list)):
+            out.extend(t for t in v if hasattr(t, "data_ptr"))
+        elif hasattr(v, "coeff_count"):  # NTTTables: the direction's twiddles
+            if fn_name.startswith("ntt_inverse"):
+                out += [v.inv_root_powers, v.scaled_inv_root_powers,
+                        v.inv_degree_modulo, v.scaled_inv_degree]
+            else:
+                out += [v.root_powers, v.scaled_root_powers]
+            out.append(v.modulus)
+        elif hasattr(v, "ratio0"):  # LimbConstants
+            out += [v.p, v.ratio0, v.ratio1]
+    return out
+
+
+def bytes_once(tensors) -> int:
+    """Bytes of the union of the tensors' memory: a storage that two
+    arguments share (the step squares by passing one ciphertext twice) is
+    read once."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in tensors if t.numel())
+    total, end = 0, 0
+    for lo, hi in spans:
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def work(kernel, fn_name, args, kwargs, result):
+    """(bytes, 32-bit IMADs) the call needs: every input read once, every
+    output written once, and the integer multiplies of its arithmetic."""
+    outs = result if isinstance(result, tuple) else (result,)
+    nbytes = bytes_once(tensors_of(fn_name, args, kwargs)) + bytes_once(outs)
+    if kernel == "ntt":
+        x, tables = args
+        rows = x.numel() // x.shape[-1]
+        n, log_n = tables.coeff_count, tables.coeff_count_power
+        inverse = fn_name.startswith("ntt_inverse")
+        ops = rows * (n // 2) * (log_n + (1 if inverse else 0)) * IMAD_SHOUP
+    elif kernel == "tensor_product":
+        a, b = args[0], args[1]
+        ops = (a.numel() // 2) * (3 if b is None else 4) * IMAD_MULMOD
+    elif kernel == "contract":
+        a, w = args[0], args[1]
+        K = w.shape[1]
+        ops = outs[0].numel() * (K * IMAD_MAC + IMAD_BARRETT128)
+        if kwargs.get("prescale") is not None:  # once per input element
+            ops += a.numel() * IMAD_MULMOD
+    else:
+        ops = outs[0].numel() * ELEMENTWISE_MULMODS[args[0]] * IMAD_MULMOD
+    return nbytes, ops
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="run the same phases at N=1024, batch 2, on the CPU "
+                         "through the plain versions (no result line)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not args.cpu_rehearsal and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+
+    import gemini_seal_tpu_torch as T
+    from gemini_seal_tpu_torch.ops import cuda
+    from gemini_seal_tpu_torch.ops.backend import plain_versions
+    from gemini_seal_tpu_torch.utils import native
+
+    rehearsal = args.cpu_rehearsal
+    device = "cpu" if rehearsal else "cuda"
+    n = 1024 if rehearsal else 8192
+    batch = 2 if rehearsal else 128
+    reps = 1 if rehearsal else 20
+
+    # 1. the device ----------------------------------------------------------
+    card = "cpu rehearsal"
+    if not rehearsal:
+        card = nvidia_smi_line()
+        print(card, flush=True)
+    emit({"phase": "device", "card": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "name": torch.cuda.get_device_name(0) if not rehearsal else "cpu"})
+
+    # 2. build ---------------------------------------------------------------
+    if not rehearsal:
+        t0 = time.perf_counter()
+        report = cuda.build()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
+                          for k, v in report.items()}})
+
+    # 3. the main path, once, with the counters from 0 -------------------------
+    recorder = Recorder()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    recorder.phase = "keygen"
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [50, 40, 40, 50]))
+    parms.set_random_seed(tuple(range(71, 79)))
+    sec = T.SecLevelType.none if rehearsal else T.SecLevelType.tc128
+    ctx = T.SealContext(parms, sec_level=sec, device=device)
+    kg = T.KeyGenerator(ctx, device=device)
+    pk = kg.public_key()
+    rk = kg.relin_keys().stacked(2)
+    keygen_s = time.perf_counter() - t0
+    emit({"phase": "keygen", "host_prng": "native g++ build" if native.available()
+          else "pure python", "seconds": keygen_s})
+
+    recorder.phase = "encode_encrypt"
+    encoder = T.CKKSEncoder(ctx, device=device)
+    enc = T.Encryptor(ctx, pk, device=device)
+    dec = T.Decryptor(ctx, kg.secret_key, device=device)
+    scale = 2.0 ** 40
+    vals = [1.001] * encoder.slot_count
+    ct = enc.encrypt(encoder.encode(vals, scale))
+    a = ct.data.expand((batch,) + tuple(ct.data.shape)).contiguous()
+
+    recorder.phase = "step"
+    step = T.build_ckks_mul_relin_rescale(ctx, device=device)
+    square = T.build_ckks_mul_relin_rescale(ctx, square=True, device=device)
+    before_step = dict(cuda.LAUNCHES)
+    out = step(a, a, rk)
+    per_step = {k: cuda.LAUNCHES[k] - before_step[k] for k in cuda.LAUNCHES}
+
+    recorder.phase = "decrypt_decode"
+    next_cd = ctx.first_context_data().next_context_data
+    q_last = ctx.first_context_data().parms.coeff_modulus[-1].value
+    out_scale = scale * scale / q_last
+    got = encoder.decode(dec.decrypt(T.Ciphertext(out[0], next_cd.parms_id, True, out_scale)))
+    recorder.phase = None
+    recorder.remove()
+    if not rehearsal:
+        torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    emit({"phase": "main_path", "seconds": time.perf_counter() - t0,
+          "launches": launches, "launches_per_step": per_step,
+          "out_shape": list(out.shape)})
+    want = vals[0] * vals[0]
+    err = max(abs(g - want) for g in got)
+    if not err < 1e-4:
+        raise AssertionError(f"main path decodes to {err} from v^2")
+    missing = [k for k in launches if launches[k] == 0 or per_step[k] == 0]
+    if not rehearsal and missing:
+        raise AssertionError(f"kernels not launched on the main path's step: {missing}")
+
+    # 4. the kernel calls of the main path against their plain versions ----------
+    # Every distinct (function, op, shapes) call, keygen through decode, is
+    # replayed both ways and compared exactly; every call of the step is
+    # also timed both ways beside its bound.
+    sync = torch.cuda.synchronize if not rehearsal else (lambda: None)
+    rows = {}
+    seen = set()
+    for phase, kernel, fn, cargs, ckw in recorder.calls:
+        row = rows.setdefault(kernel, {"checked": [], "step_calls": [], "ms": 0.0,
+                                       "plain_ms": 0.0, "bytes": 0, "imads": 0,
+                                       "bound_ms": 0.0, "max_abs_err": 0, "tolerance": 0})
+        key = (kernel, fn.__name__, signature(cargs, ckw))
+        if key not in seen:
+            seen.add(key)
+            got_k = fn(*cargs, **ckw)
+            with plain_versions():
+                got_p = fn(*cargs, **ckw)
+            sync()
+            pairs = zip(got_k, got_p) if isinstance(got_k, tuple) else [(got_k, got_p)]
+            for x, y in pairs:
+                # residues are compared exactly (tolerance 0): the u64 bit patterns
+                row["max_abs_err"] = max(row["max_abs_err"], int((x - y).abs().max().item()))
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{kernel} ({phase}, {fn.__name__}): kernel differs "
+                                         f"from its plain version at {tuple(x.shape)}")
+            row["checked"].append({"phase": phase, "fn": fn.__name__,
+                                   "signature": repr(key[2])})
+        if phase != "step":
+            continue
+        result = fn(*cargs, **ckw)
+        nbytes, ops = work(kernel, fn.__name__, cargs, ckw, result)
+        if rehearsal:
+            ms = plain_ms = None
+        else:
+            ms = event_ms(torch, lambda: fn(*cargs, **ckw), reps)
+            with plain_versions():
+                plain_ms = event_ms(torch, lambda: fn(*cargs, **ckw), max(2, reps // 4))
+            row["ms"] += ms
+            row["plain_ms"] += plain_ms
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_IMAD_PER_S) * 1e3
+        row["step_calls"].append({"fn": fn.__name__, "signature": repr(key[2]), "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": bound,
+                                  "bytes": nbytes, "imads": ops})
+        row["bytes"] += nbytes
+        row["imads"] += ops
+        row["bound_ms"] += bound
+    for kernel, row in rows.items():
+        emit({"phase": "kernel_check", "kernel": kernel, "equal": True, **row})
+    recorder.calls.clear()
+
+    # 5. batch 2, multiply and square, against the plain path on the card ---------
+    a2 = a[:2].contiguous()
+    for name, fn, fargs in (("multiply", step, (a2, a2, rk)), ("square", square, (a2, rk))):
+        got_k = fn(*fargs)
+        with plain_versions():
+            got_p = fn(*fargs)
+        sync()
+        if not torch.equal(got_k, got_p):
+            raise AssertionError(f"batch-2 {name} step differs from the plain path")
+        dec_vals = encoder.decode(dec.decrypt(
+            T.Ciphertext(got_k[1], next_cd.parms_id, True, out_scale)))
+        err = max(abs(g - want) for g in dec_vals)
+        if not err < 1e-4:
+            raise AssertionError(f"batch-2 {name} decodes {err} from v^2")
+        emit({"phase": "batch2", "form": name, "equal_to_plain": True,
+              "max_abs_decode_err": err})
+
+    # 6. steady state at bench.py's shape ------------------------------------
+    ops_per_s = None
+    if not rehearsal:
+        step(a, a, rk)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(a, a, rk)
+        torch.cuda.synchronize()
+        per = time.perf_counter() - t1
+        iters = max(5, min(200, int(3.0 / max(per, 1e-6))))
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            step(a, a, rk)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        ops_per_s = batch * iters / dt
+        emit({"phase": "steady_state", "metric": "ckks_mul_relin_rescale_n8192_ops_per_s",
+              "value": ops_per_s, "batch": batch, "iters": iters, "seconds": dt,
+              "card": card})
+        emit({"phase": "profile",
+              **profile_steps(torch, lambda: step(a, a, rk), 10, dt * 1e3 / iters)})
+
+    # 7. kernels line and result line -----------------------------------------------
+    replaces = {
+        "ntt": "gemini_seal_tpu/ops/ntt.py:241 ntt_forward_lazy, :322 ntt_inverse_lazy",
+        "tensor_product": "gemini_seal_tpu/models/pipelines.py:72 _convolve3, :87 _square3",
+        "contract": "gemini_seal_tpu/ops/modops.py:218 accumulate_mulmod_128",
+        "elementwise": "gemini_seal_tpu/ops/keyswitch.py:438 fused_moddown mul_mod/add_mod epilogues",
+    }
+    sources = {k: f"gemini_seal_tpu_torch/csrc/{v[0]}" for k, v in cuda.KERNELS.items()}
+    kernels = []
+    for kernel, row in rows.items():
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": sources[kernel],
+            "replaces": replaces[kernel], "launches": launches[kernel],
+            "launches_per_step": per_step[kernel],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"] if not rehearsal else None,
+            "plain_ms": row["plain_ms"] if not rehearsal else None,
+            "bound_ms": row["bound_ms"],
+            "bound_by": "operations" if row["imads"] / INT32_IMAD_PER_S
+                        >= row["bytes"] / HBM_BYTES_PER_S else "bytes",
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes u64 modular arithmetic",
+        })
+    emit({"kernels": kernels})
+    if rehearsal:
+        emit({"ok": True, "rehearsal": "cpu"})
+        return 0
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

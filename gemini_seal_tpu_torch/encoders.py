@@ -1,0 +1,230 @@
+"""CKKSEncoder: the canonical embedding (reference: ckks.{h,cpp},
+util/croots.{h,cpp}).
+
+Port of the CKKS vector encode/decode of gemini_seal_tpu/encoders.py: the
+generator-5 slot map and the high-precision 2N-th complex roots (8-fold
+symmetry); the embedding FFT runs vectorized on the host in float64, the
+NTT on the context's device.  Rounding (half away from zero) and the exact
+RNS decomposition and CRT decode ladder match the reference bit for bit.
+The scalar encode, the BFV BatchEncoder and the IntegerEncoder come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import cmath
+import math
+from typing import Sequence
+
+import numpy as np
+
+from .ciphertext import Plaintext
+from .context import SealContext
+from .ops.backend import to_numpy, to_tensor
+from .ops.ntt import ntt_forward, ntt_inverse
+from .params import SchemeType
+from .utils import mplimb, numth
+
+__all__ = ["CKKSEncoder", "ComplexRoots"]
+
+
+class ComplexRoots:
+    """High-precision 2N-th complex roots with 8-fold symmetry
+    (reference: util/croots.cpp)."""
+
+    PI = 3.1415926535897932384626433832795028842
+
+    def __init__(self, degree_of_roots: int):
+        self.degree = degree_of_roots
+        # 1/8 of the circle, exactly as the reference generates them.
+        self._roots = [
+            cmath.rect(1.0, 2 * self.PI * i / degree_of_roots)
+            for i in range(degree_of_roots // 8 + 1)
+        ]
+
+    def get_root(self, index: int) -> complex:
+        index &= self.degree - 1
+        d = self.degree
+        if index <= d // 8:
+            return self._roots[index]
+        if index <= d // 4:
+            r = self._roots[d // 4 - index]
+            return complex(r.imag, r.real)
+        if index <= d // 2:
+            return -self.get_root(d // 2 - index).conjugate()
+        if index <= 3 * d // 4:
+            return -self.get_root(index - d // 2)
+        return self.get_root(d - index).conjugate()
+
+
+class CKKSEncoder:
+    """CKKS canonical embedding (reference: ckks.{h,cpp})."""
+
+    def __init__(self, context: SealContext, device=None):
+        if not context.parameters_set():
+            raise ValueError("encryption parameters are not set correctly")
+        self.device = context.check_device(device)
+        cd = context.first_context_data()
+        if cd.parms.scheme != SchemeType.CKKS:
+            raise ValueError("unsupported scheme")
+        self.context = context
+        n = cd.parms.poly_modulus_degree
+        self.slots = n >> 1
+        logn = numth.get_power_of_two(n)
+        self._logn = logn
+        self._n = n
+
+        # generator-5 slot map (ckks.cpp:37-56)
+        m = n << 1
+        gen, pos = 5, 1
+        index_map = np.zeros(n, dtype=np.int64)
+        for i in range(self.slots):
+            index1 = (pos - 1) >> 1
+            index2 = (m - pos - 1) >> 1
+            index_map[i] = numth.reverse_bits(index1, logn)
+            index_map[self.slots | i] = numth.reverse_bits(index2, logn)
+            pos = (pos * gen) & (m - 1)
+        self._index_map = index_map
+
+        # bit-reversed root tables (ckks.cpp:58-77)
+        roots = np.zeros(n, dtype=np.complex128)
+        if m >= 8:
+            croots = ComplexRoots(m)
+            for i in range(n):
+                roots[i] = croots.get_root(numth.reverse_bits(i, logn))
+        elif m == 4:
+            roots[0] = 1j
+            roots[1] = -1j
+        self._roots = roots
+        self._inv_roots = np.conj(roots)
+
+    @property
+    def slot_count(self) -> int:
+        return self.slots
+
+    # -- embedding FFTs (vectorized versions of ckks.h:458-482, 723-744;
+    #    batch-polymorphic over leading axes) --
+    def _embedding_inverse(self, a: np.ndarray) -> np.ndarray:
+        n = self._n
+        logn = self._logn
+        batch = a.shape[:-1]
+        tt = 1
+        for i in range(logn):
+            mm = 1 << (logn - i)
+            h = mm >> 1
+            s = self._inv_roots[h : 2 * h][:, None]       # [h, 1]
+            a = a.reshape(batch + (h, 2, tt))
+            u = a[..., 0, :]
+            v = a[..., 1, :]
+            a = np.stack([u + v, (u - v) * s], axis=-2).reshape(batch + (n,))
+            tt <<= 1
+        return a
+
+    def _embedding_forward(self, a: np.ndarray) -> np.ndarray:
+        n = self._n
+        logn = self._logn
+        batch = a.shape[:-1]
+        tt = n
+        for i in range(logn):
+            mm = 1 << i
+            tt >>= 1
+            s = self._roots[mm : 2 * mm][:, None]
+            a = a.reshape(batch + (mm, 2, tt))
+            u = a[..., 0, :]
+            v = a[..., 1, :] * s
+            a = np.stack([u + v, u - v], axis=-2).reshape(batch + (n,))
+        return a
+
+    # -- encode ----------------------------------------------------------
+    def encode(self, values: Sequence, scale: float, parms_id=None) -> Plaintext:
+        """values (<= N/2 slots of double/complex) -> NTT-form RNS plaintext
+        on the context's device (reference: ckks.h:405-617)."""
+        if parms_id is None:
+            parms_id = self.context.first_parms_id
+        cd = self.context.get_context_data(parms_id)
+        if cd is None:
+            raise ValueError("parms_id is not valid for encryption parameters")
+        if isinstance(values, (int, float, complex)):
+            raise TypeError("scalar encode is not ported yet: pass a sequence of slot values")
+        n = self._n
+        values = list(values)
+        if len(values) > self.slots:
+            raise ValueError("values_size is too large")
+        if scale <= 0 or int(math.log2(scale)) + 1 >= cd.total_coeff_modulus_bit_count:
+            raise ValueError("scale out of bounds")
+
+        vals_arr = np.asarray(values, dtype=np.complex128)
+        conj_values = np.zeros(n, dtype=np.complex128)
+        conj_values[self._index_map[: vals_arr.size]] = vals_arr
+        conj_values[self._index_map[self.slots : self.slots + vals_arr.size]] = (
+            np.conj(vals_arr)
+        )
+
+        conj_values = self._embedding_inverse(conj_values)
+        n_inv = (1.0 / n) * scale
+        conj_values *= n_inv
+
+        reals = conj_values.real
+        d = np.maximum(np.abs(reals), 1.0)
+        max_coeff_bit_count = int(np.max(np.floor(np.log2(d)))) + 2
+        if max_coeff_bit_count >= cd.total_coeff_modulus_bit_count:
+            raise ValueError("encoded values are too large")
+
+        rounded = np.sign(reals) * np.floor(np.abs(reals) + 0.5)
+        dest = self._decompose_exact(rounded, cd.parms.coeff_modulus)
+        out = ntt_forward(to_tensor(dest, self.device), cd.ntt_tables)
+        return Plaintext(data=out, parms_id=cd.parms_id, scale=scale)
+
+    @staticmethod
+    def _decompose_exact(rounded: np.ndarray, moduli) -> np.ndarray:
+        """Exact RNS residues of already-rounded (integer-valued) doubles:
+        below 2^62 through an exact float->int64 cast, above through the
+        exact mantissa/exponent split (a rounded double IS m * 2^e with a
+        53-bit integer mantissa) on Python ints."""
+        L = len(moduli)
+        dest = np.zeros((L, rounded.shape[0]), dtype=np.uint64)
+        small = np.abs(rounded) < 2.0 ** 62
+        as_int = np.where(small, rounded, 0.0).astype(np.int64)
+        for j, mod in enumerate(moduli):
+            dest[j] = np.mod(as_int, np.int64(mod.value)).astype(np.uint64)
+        for i in np.nonzero(~small)[0]:
+            v = int(rounded[i])  # exact: the double is an integer
+            for j, mod in enumerate(moduli):
+                dest[j, i] = v % mod.value
+        return dest
+
+    # -- decode ----------------------------------------------------------
+    def decode(self, plain: Plaintext, as_complex: bool = False):
+        """NTT-form RNS plaintext -> slot values (reference: ckks.h:620-750)."""
+        if not plain.is_ntt_form:
+            raise ValueError("plain is not in NTT form")
+        cd = self.context.get_context_data(plain.parms_id)
+        if cd is None:
+            raise ValueError("plain is not valid for encryption parameters")
+        if plain.scale <= 0 or int(math.log2(plain.scale)) >= cd.total_coeff_modulus_bit_count:
+            raise ValueError("scale out of bounds")
+
+        inv_scale = 1.0 / plain.scale
+        data = to_numpy(ntt_inverse(plain.data.to(self.device), cd.ntt_tables))
+        res_real = self._centered_ladder(data, cd, inv_scale)
+        res = self._embedding_forward(res_real.astype(np.complex128))
+        out_arr = res[self._index_map[: self.slots]]
+        if as_complex:
+            return out_arr.tolist()
+        return out_arr.real.tolist()
+
+    @staticmethod
+    def _centered_ladder(data: np.ndarray, cd, inv_scale: float) -> np.ndarray:
+        """CRT-compose [L, M] residue planes to centered doubles [M]
+        (reference: ckks.h:668-744): v >= (q+1)/2 decodes as -(q - v); the
+        LSB-first double ladder keeps the reference's op order, and
+        negating the positive-ladder result is bit-exact to the reference's
+        subtract-each-term order (IEEE rounding is sign-symmetric)."""
+        q = cd.total_coeff_modulus
+        K = max(1, (q.bit_length() + 63) // 64)
+        upper = cd.upper_half_threshold
+        vals = mplimb.compose_ints(data, cd.rns_base)
+        is_neg = np.array([v >= upper for v in vals], dtype=bool)
+        mag = mplimb.ints_to_limbs([q - v if v >= upper else v for v in vals], K)
+        res_real = mplimb.ladder_to_double(mag, inv_scale)
+        return np.where(is_neg, -res_real, res_real)
