@@ -1,29 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one card and check them.
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # N=1024 on the CPU, plain versions
 
-The main path is bench.py's CKKS step: N=8192, CoeffModulus.create(8192,
-[50, 40, 40, 50]) with one special prime, seed range(71, 79), keygen,
-encode of [1.001] * slots at scale 2^40, public-key encrypt, broadcast to
-batch 128, the fused multiply + relinearize + rescale step, decrypt and
-decode.  The script
+The ring is bench.py's: N=8192, CoeffModulus.create(8192, [50, 40, 40, 50])
+with one special prime, seed range(71, 79), scale 2^40.  Three paths run on
+it, each driven once with every launch counter set to 0 just before it and
+read just after it:
+
+- mul_relin_rescale (bench.py's step): keygen, encode of [1.001] * slots,
+  public-key encrypt, broadcast to batch 128, the fused multiply +
+  relinearize + rescale step, decrypt, decode (within 1e-4 of v^2);
+- train_step (the flagship step of __graft_entry__.entry()): Galois keygen
+  for step 1, encode of a seeded non-constant vector v, encrypt, batch 128,
+  the sequential multiply + relinearize + rescale, rotate by one and add,
+  decrypt, decode (within 1e-4 of v_i^2 + v_{i+1}^2);
+- rotate_many (the hoisted rotations): Galois keygen for steps 1..8,
+  encrypt v, batch 16, eight rotations from one mod-up, decrypt, decode
+  (each within 1e-4 of v shifted by its step).
+
+The script
 
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
-2. builds the four kernels (nvcc, one process each, in parallel) and
+2. builds the five kernels (nvcc, one process each, in parallel) and
    prints each one's -Xptxas -v summary;
-3. drives the main path once with every launch counter set to 0 and reads
-   the counters after it, recording each kernel call from keygen through
-   decode;
+3. drives the three paths, recording each kernel call;
 4. holds every distinct recorded kernel call (function, op, shapes)
    against its plain PyTorch version on the same inputs on the card
-   (bit-exact), and times each call of the step both ways with CUDA
-   events beside the least time the card could take for the same work;
-5. checks the batch-2 step, multiply and square forms, bit for bit against
-   the port's plain path on the card, and decodes within 1e-4 of v^2;
-6. times the steady-state step at batch 128 (ops/s) and profiles it
-   (device time by kernel, device busy share);
+   (bit-exact), and times each call of each path's step both ways with
+   CUDA events beside the least time the card could take for the same
+   work (and, for ``galois``, beside torch.index_select / torch.gather);
+5. checks batch 2 of the fused multiply and square, the sequential
+   multiply, the train step and the hoisted rotations bit for bit against
+   the port's plain path on the card;
+6. times each step at its full batch (ops/s or rotations/s), the
+   sequential multiply + relinearize + rescale of the train step alone
+   too, and profiles each (device time by kernel, device busy share),
+   with the recorder removed;
 7. prints the kernels line and, last, the result line.
 
 Any mismatch raises and the script exits non-zero; it exits non-zero with
@@ -55,6 +69,13 @@ IMAD_MAC = 7
 ELEMENTWISE_MULMODS = {"add": 0, "sub": 0, "neg": 0, "mul": 1, "muladd": 1,
                        "addmul": 1, "barrett64": 0}
 
+# the kernels each path's step must launch
+PATH_KERNELS = {
+    "mul_relin_rescale": ("ntt", "tensor_product", "contract", "elementwise"),
+    "train_step": ("ntt", "tensor_product", "contract", "elementwise", "galois"),
+    "rotate_many": ("ntt", "contract", "elementwise", "galois"),
+}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -70,21 +91,23 @@ def nvidia_smi_line() -> str:
 
 class Recorder:
     """Wraps every kernel wrapper wherever a module of the port holds it, so
-    one run of the main path yields the exact (phase, kernel, function,
-    args) of every kernel call, from keygen through decode.  ``remove``
-    puts the wrappers back, so that later phases time the step as a user
-    calls it."""
+    one run of a path yields the exact (path, phase, kernel, function, args)
+    of every kernel call, from keygen through decode.  ``remove`` puts the
+    wrappers back, so that later phases time the steps as a user calls
+    them."""
 
     def __init__(self):
         from gemini_seal_tpu_torch.models import pipelines
-        from gemini_seal_tpu_torch.ops import modops, ntt
+        from gemini_seal_tpu_torch.ops import galois, modops, ntt
 
         kernel_of = {ntt.ntt_forward_lazy: "ntt", ntt.ntt_forward: "ntt",
                      ntt.ntt_inverse_lazy: "ntt", ntt.ntt_inverse: "ntt",
                      pipelines._tensor_product: "tensor_product",
                      modops.contract_mulmod_128: "contract",
-                     modops.rns_elementwise: "elementwise"}
+                     modops.rns_elementwise: "elementwise",
+                     galois.galois_permute: "galois"}
         self.calls = []
+        self.path = None
         self.phase = None
         self._patched = []
         wrapped = {id(fn): (fn, self._wrap(kernel, fn)) for fn, kernel in kernel_of.items()}
@@ -105,7 +128,7 @@ class Recorder:
     def _wrap(self, kernel, fn):
         def wrapped(*args, **kwargs):
             if self.phase is not None:
-                self.calls.append((self.phase, kernel, fn, args, kwargs))
+                self.calls.append((self.path, self.phase, kernel, fn, args, kwargs))
             return fn(*args, **kwargs)
         return wrapped
 
@@ -127,12 +150,22 @@ def signature(args, kwargs):
 
 
 def event_ms(torch, fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches after a warm-up."""
-    for _ in range(2):
-        fn()
+    """Mean device time of fn() over reps launches.
+
+    At least 10 ms of warm-up launches come first (a first call timed from
+    an idle card ran up to 3x slow while its clock came up).  The timed
+    launches are queued behind a 10 ms device-side sleep, so that they run
+    back to back: a kernel shorter than its wrapper's host time would
+    otherwise be timed at the host's launch rate."""
+    warm_until = time.perf_counter() + 0.01
+    fn()
     torch.cuda.synchronize()
+    while time.perf_counter() < warm_until:
+        fn()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(0.01 * 1.98e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -217,18 +250,52 @@ def work(kernel, fn_name, args, kwargs, result):
         ops = outs[0].numel() * (K * IMAD_MAC + IMAD_BARRETT128)
         if kwargs.get("prescale") is not None:  # once per input element
             ops += a.numel() * IMAD_MULMOD
+    elif kernel == "galois":
+        ops = 0  # a permutation: bytes only
     else:
         ops = outs[0].numel() * ELEMENTWISE_MULMODS[args[0]] * IMAD_MULMOD
     return nbytes, ops
 
 
+def library_call(torch, x, tabs):
+    """The one PyTorch call that computes galois_permute(x, tabs): an
+    index_select over the last axis for one table, a gather of the
+    broadcast rows for several."""
+    R, N = tabs.shape
+    if R == 1:
+        return lambda: x.index_select(-1, tabs[0])
+    lead, rows = x.shape[:-2], x.shape[-2]
+    shape = lead + (R, rows, N)
+    src = x.unsqueeze(-3).expand(shape)
+    idx = tabs.reshape(R, 1, N).expand(shape)
+    return lambda: torch.gather(src, -1, idx)
+
+
+def steady(torch, fn, count: int):
+    """(count per second, iterations, seconds) of fn over about 3 s."""
+    fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    per = time.perf_counter() - t1
+    iters = max(5, min(200, int(3.0 / max(per, 1e-6))))
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    return count * iters / dt, iters, dt
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run the same phases at N=1024, batch 2, on the CPU "
-                         "through the plain versions (no result line)")
+                    help="run the same phases at N=1024, batch 2, two rotations, "
+                         "on the CPU through the plain versions (no result line)")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
 
     if not args.cpu_rehearsal and not torch.cuda.is_available():
@@ -244,7 +311,10 @@ def main(argv=None) -> int:
     device = "cpu" if rehearsal else "cuda"
     n = 1024 if rehearsal else 8192
     batch = 2 if rehearsal else 128
+    rot_batch = 2 if rehearsal else 16
+    rot_steps = list(range(1, 3 if rehearsal else 9))
     reps = 1 if rehearsal else 20
+    sync = torch.cuda.synchronize if not rehearsal else (lambda: None)
 
     # 1. the device ----------------------------------------------------------
     card = "cpu rehearsal"
@@ -263,10 +333,36 @@ def main(argv=None) -> int:
               "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                           for k, v in report.items()}})
 
-    # 3. the main path, once, with the counters from 0 -------------------------
+    # 3. the three paths, each once, with the counters from 0 ------------------
     recorder = Recorder()
-    cuda.reset_launches()
-    t0 = time.perf_counter()
+    paths = {}
+
+    def begin(path):
+        recorder.path = path
+        cuda.reset_launches()
+        return time.perf_counter()
+
+    def end(path, t0, per_step, **extra):
+        recorder.phase = None
+        sync()
+        paths[path] = {"launches": dict(cuda.LAUNCHES), "launches_per_step": per_step,
+                       "seconds": time.perf_counter() - t0, **extra}
+        emit({"phase": "main_path", "path": path, **paths[path]})
+        missing = [k for k in PATH_KERNELS[path]
+                   if paths[path]["launches"][k] == 0 or per_step[k] == 0]
+        if not rehearsal and missing:
+            raise AssertionError(f"kernels not launched on {path}'s step: {missing}")
+
+    def count_step(fn, *fargs):
+        before = dict(cuda.LAUNCHES)
+        out = fn(*fargs)
+        return out, {k: cuda.LAUNCHES[k] - before[k] for k in cuda.LAUNCHES}
+
+    def max_err(got, want):
+        return max(abs(g - w) for g, w in zip(got, want))
+
+    # 3a. mul_relin_rescale: bench.py's fused step (as before this slice)
+    t0 = begin("mul_relin_rescale")
     recorder.phase = "keygen"
     parms = T.EncryptionParameters(T.SchemeType.CKKS)
     parms.set_poly_modulus_degree(n)
@@ -291,44 +387,76 @@ def main(argv=None) -> int:
     a = ct.data.expand((batch,) + tuple(ct.data.shape)).contiguous()
 
     recorder.phase = "step"
-    step = T.build_ckks_mul_relin_rescale(ctx, device=device)
-    square = T.build_ckks_mul_relin_rescale(ctx, square=True, device=device)
-    before_step = dict(cuda.LAUNCHES)
-    out = step(a, a, rk)
-    per_step = {k: cuda.LAUNCHES[k] - before_step[k] for k in cuda.LAUNCHES}
+    step = T.build_ckks_mul_relin_rescale(ctx, fused=True, device=device)
+    square = T.build_ckks_mul_relin_rescale(ctx, fused=True, square=True, device=device)
+    out, per_step = count_step(step, a, a, rk)
 
     recorder.phase = "decrypt_decode"
-    next_cd = ctx.first_context_data().next_context_data
-    q_last = ctx.first_context_data().parms.coeff_modulus[-1].value
-    out_scale = scale * scale / q_last
+    first_cd = ctx.first_context_data()
+    next_cd = first_cd.next_context_data
+    out_scale = scale * scale / first_cd.parms.coeff_modulus[-1].value
     got = encoder.decode(dec.decrypt(T.Ciphertext(out[0], next_cd.parms_id, True, out_scale)))
-    recorder.phase = None
-    recorder.remove()
-    if not rehearsal:
-        torch.cuda.synchronize()
-    launches = dict(cuda.LAUNCHES)
-    emit({"phase": "main_path", "seconds": time.perf_counter() - t0,
-          "launches": launches, "launches_per_step": per_step,
-          "out_shape": list(out.shape)})
-    want = vals[0] * vals[0]
-    err = max(abs(g - want) for g in got)
+    want_sq = [v * v for v in vals]
+    err = max_err(got, want_sq)
+    end("mul_relin_rescale", t0, per_step, out_shape=list(out.shape), max_abs_decode_err=err)
     if not err < 1e-4:
-        raise AssertionError(f"main path decodes to {err} from v^2")
-    missing = [k for k in launches if launches[k] == 0 or per_step[k] == 0]
-    if not rehearsal and missing:
-        raise AssertionError(f"kernels not launched on the main path's step: {missing}")
+        raise AssertionError(f"mul_relin_rescale decodes to {err} from v^2")
 
-    # 4. the kernel calls of the main path against their plain versions ----------
+    # a seeded non-constant vector, so that a rotation shows in the decode
+    slots = encoder.slot_count
+    v = np.random.default_rng(2024).uniform(-1.0, 1.0, slots)
+
+    # 3b. train_step: the flagship step (sequential mul + rotate + add)
+    t0 = begin("train_step")
+    recorder.phase = "keygen"
+    elt1 = first_cd.galois_tool.get_elt_from_step(1)
+    gk1 = kg.galois_keys([elt1]).stacked(elt1)
+    recorder.phase = "encode_encrypt"
+    ct_v = enc.encrypt(encoder.encode(v.tolist(), scale))
+    av = ct_v.data.expand((batch,) + tuple(ct_v.data.shape)).contiguous()
+    recorder.phase = "step"
+    train = T.build_ckks_train_step(ctx, rotate_steps=1, device=device)
+    out, per_step = count_step(train, av, av, rk, gk1)
+    recorder.phase = "decrypt_decode"
+    got = encoder.decode(dec.decrypt(T.Ciphertext(out[0], next_cd.parms_id, True, out_scale)))
+    want_train = v * v + np.roll(v * v, -1)
+    err = max_err(got, want_train)
+    end("train_step", t0, per_step, out_shape=list(out.shape), max_abs_decode_err=err)
+    if not err < 1e-4:
+        raise AssertionError(f"train_step decodes to {err} from v_i^2 + v_(i+1)^2")
+
+    # 3c. rotate_many: hoisted rotations by steps 1..R from one mod-up
+    t0 = begin("rotate_many")
+    recorder.phase = "keygen"
+    gks = kg.galois_keys_from_steps(rot_steps)
+    elts = first_cd.galois_tool.get_elts_from_steps(rot_steps)
+    keys_stack = gks.stacked(*elts)
+    recorder.phase = "encode_encrypt"
+    ct_r = enc.encrypt(encoder.encode(v.tolist(), scale))
+    ar = ct_r.data.expand((rot_batch,) + tuple(ct_r.data.shape)).contiguous()
+    recorder.phase = "step"
+    rmany = T.build_ckks_rotate_many(ctx, rot_steps, device=device)
+    out, per_step = count_step(rmany, ar, keys_stack)
+    recorder.phase = "decrypt_decode"
+    err = 0.0
+    for r, s in enumerate(rot_steps):
+        got = encoder.decode(dec.decrypt(T.Ciphertext(out[r, 0], ct_r.parms_id, True,
+                                                      ct_r.scale)))
+        err = max(err, max_err(got, np.roll(v, -s)))
+    end("rotate_many", t0, per_step, out_shape=list(out.shape), max_abs_decode_err=err)
+    if not err < 1e-4:
+        raise AssertionError(f"rotate_many decodes to {err} from the shifted v")
+    recorder.remove()
+
+    # 4. the kernel calls of the paths against their plain versions ------------
     # Every distinct (function, op, shapes) call, keygen through decode, is
-    # replayed both ways and compared exactly; every call of the step is
-    # also timed both ways beside its bound.
-    sync = torch.cuda.synchronize if not rehearsal else (lambda: None)
+    # replayed both ways and compared exactly; every call of a step is also
+    # timed both ways beside its bound (and galois beside its library call).
     rows = {}
     seen = set()
-    for phase, kernel, fn, cargs, ckw in recorder.calls:
-        row = rows.setdefault(kernel, {"checked": [], "step_calls": [], "ms": 0.0,
-                                       "plain_ms": 0.0, "bytes": 0, "imads": 0,
-                                       "bound_ms": 0.0, "max_abs_err": 0, "tolerance": 0})
+    for path, phase, kernel, fn, cargs, ckw in recorder.calls:
+        row = rows.setdefault(kernel, {"checked": [], "step_calls": [], "by_path": {},
+                                       "max_abs_err": 0, "tolerance": 0})
         key = (kernel, fn.__name__, signature(cargs, ckw))
         if key not in seen:
             seen.add(key)
@@ -341,71 +469,90 @@ def main(argv=None) -> int:
                 # residues are compared exactly (tolerance 0): the u64 bit patterns
                 row["max_abs_err"] = max(row["max_abs_err"], int((x - y).abs().max().item()))
                 if not torch.equal(x, y):
-                    raise AssertionError(f"{kernel} ({phase}, {fn.__name__}): kernel differs "
-                                         f"from its plain version at {tuple(x.shape)}")
-            row["checked"].append({"phase": phase, "fn": fn.__name__,
+                    raise AssertionError(f"{kernel} ({path} {phase}, {fn.__name__}): kernel "
+                                         f"differs from its plain version at {tuple(x.shape)}")
+            row["checked"].append({"path": path, "phase": phase, "fn": fn.__name__,
                                    "signature": repr(key[2])})
         if phase != "step":
             continue
         result = fn(*cargs, **ckw)
         nbytes, ops = work(kernel, fn.__name__, cargs, ckw, result)
-        if rehearsal:
-            ms = plain_ms = None
-        else:
+        ms = plain_ms = lib_ms = None
+        if kernel == "galois":
+            lib = library_call(torch, *cargs)
+            if not torch.equal(lib().reshape(result.shape), result):
+                raise AssertionError("galois: the library call differs from the kernel")
+        if not rehearsal:
             ms = event_ms(torch, lambda: fn(*cargs, **ckw), reps)
             with plain_versions():
                 plain_ms = event_ms(torch, lambda: fn(*cargs, **ckw), max(2, reps // 4))
-            row["ms"] += ms
-            row["plain_ms"] += plain_ms
+            if kernel == "galois":
+                lib_ms = event_ms(torch, lib, reps)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_IMAD_PER_S) * 1e3
-        row["step_calls"].append({"fn": fn.__name__, "signature": repr(key[2]), "ms": ms,
-                                  "plain_ms": plain_ms, "bound_ms": bound,
-                                  "bytes": nbytes, "imads": ops})
-        row["bytes"] += nbytes
-        row["imads"] += ops
-        row["bound_ms"] += bound
+        row["step_calls"].append({"path": path, "fn": fn.__name__, "signature": repr(key[2]),
+                                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                  "bound_ms": bound, "bytes": nbytes, "imads": ops})
+        bp = row["by_path"].setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                              "bound_ms": 0.0, "bytes": 0, "imads": 0})
+        if not rehearsal:
+            bp["ms"] += ms
+            bp["plain_ms"] += plain_ms
+            bp["library_ms"] += lib_ms or 0.0
+        bp["bound_ms"] += bound
+        bp["bytes"] += nbytes
+        bp["imads"] += ops
     for kernel, row in rows.items():
         emit({"phase": "kernel_check", "kernel": kernel, "equal": True, **row})
     recorder.calls.clear()
 
-    # 5. batch 2, multiply and square, against the plain path on the card ---------
-    a2 = a[:2].contiguous()
-    for name, fn, fargs in (("multiply", step, (a2, a2, rk)), ("square", square, (a2, rk))):
+    # 5. batch 2 of each step against the plain path on the card -----------------
+    seq = T.build_ckks_mul_relin_rescale(ctx, device=device)
+    a2, av2, ar2 = a[:2].contiguous(), av[:2].contiguous(), ar[:2].contiguous()
+    checks = (("multiply", step, (a2, a2, rk)), ("square", square, (a2, rk)),
+              ("sequential_multiply", seq, (av2, av2, rk)),
+              ("train_step", train, (av2, av2, rk, gk1)),
+              ("rotate_many", rmany, (ar2, keys_stack)))
+    for name, fn, fargs in checks:
         got_k = fn(*fargs)
         with plain_versions():
             got_p = fn(*fargs)
         sync()
         if not torch.equal(got_k, got_p):
-            raise AssertionError(f"batch-2 {name} step differs from the plain path")
-        dec_vals = encoder.decode(dec.decrypt(
-            T.Ciphertext(got_k[1], next_cd.parms_id, True, out_scale)))
-        err = max(abs(g - want) for g in dec_vals)
+            raise AssertionError(f"batch-2 {name} differs from the plain path")
+        if name == "rotate_many":
+            pt = dec.decrypt(T.Ciphertext(got_k[-1, 1].contiguous(), ct_r.parms_id, True,
+                                          ct_r.scale))
+            err = max_err(encoder.decode(pt), np.roll(v, -rot_steps[-1]))
+        else:
+            want = want_train if name == "train_step" else (
+                v * v if name == "sequential_multiply" else want_sq)
+            err = max_err(encoder.decode(dec.decrypt(
+                T.Ciphertext(got_k[1], next_cd.parms_id, True, out_scale))), want)
         if not err < 1e-4:
-            raise AssertionError(f"batch-2 {name} decodes {err} from v^2")
+            raise AssertionError(f"batch-2 {name} decodes {err} from its expectation")
         emit({"phase": "batch2", "form": name, "equal_to_plain": True,
               "max_abs_decode_err": err})
 
-    # 6. steady state at bench.py's shape ------------------------------------
-    ops_per_s = None
+    # 6. steady state at each path's full batch --------------------------------
+    timed = {
+        "mul_relin_rescale": ("ckks_mul_relin_rescale_n8192_ops_per_s", batch,
+                              lambda: step(a, a, rk)),
+        "mul_relin_rescale_sequential": ("ckks_mul_relin_rescale_sequential_n8192_ops_per_s",
+                                         batch, lambda: seq(a, a, rk)),
+        "train_step": ("ckks_train_step_n8192_ops_per_s", batch,
+                       lambda: train(av, av, rk, gk1)),
+        "rotate_many": ("ckks_rotate_many_n8192_rotations_per_s", rot_batch * len(rot_steps),
+                        lambda: rmany(ar, keys_stack)),
+    }
     if not rehearsal:
-        step(a, a, rk)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        step(a, a, rk)
-        torch.cuda.synchronize()
-        per = time.perf_counter() - t1
-        iters = max(5, min(200, int(3.0 / max(per, 1e-6))))
-        t1 = time.perf_counter()
-        for _ in range(iters):
-            step(a, a, rk)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t1
-        ops_per_s = batch * iters / dt
-        emit({"phase": "steady_state", "metric": "ckks_mul_relin_rescale_n8192_ops_per_s",
-              "value": ops_per_s, "batch": batch, "iters": iters, "seconds": dt,
-              "card": card})
-        emit({"phase": "profile",
-              **profile_steps(torch, lambda: step(a, a, rk), 10, dt * 1e3 / iters)})
+        for path, (metric, count, fn) in timed.items():
+            rate, iters, dt = steady(torch, fn, count)
+            emit({"phase": "steady_state", "path": path, "metric": metric, "value": rate,
+                  "batch": batch if path != "rotate_many" else rot_batch,
+                  "rotations": len(rot_steps) if path == "rotate_many" else None,
+                  "iters": iters, "seconds": dt, "card": card})
+            emit({"phase": "profile", "path": path,
+                  **profile_steps(torch, fn, 10, dt * 1e3 / iters)})
 
     # 7. kernels line and result line -----------------------------------------------
     replaces = {
@@ -413,21 +560,35 @@ def main(argv=None) -> int:
         "tensor_product": "gemini_seal_tpu/models/pipelines.py:72 _convolve3, :87 _square3",
         "contract": "gemini_seal_tpu/ops/modops.py:218 accumulate_mulmod_128",
         "elementwise": "gemini_seal_tpu/ops/keyswitch.py:438 fused_moddown mul_mod/add_mod epilogues",
+        "galois": "gemini_seal_tpu/ops/galois.py:123 apply_galois_ntt",
     }
     sources = {k: f"gemini_seal_tpu_torch/csrc/{v[0]}" for k, v in cuda.KERNELS.items()}
     kernels = []
     for kernel, row in rows.items():
+        bp = row["by_path"]
+        total = {f: sum(p[f] for p in bp.values())
+                 for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "imads")}
+        is_galois = kernel == "galois"
+        fields = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if is_galois else ())
         kernels.append({
             "name": kernel, "route": "cuda", "source": sources[kernel],
-            "replaces": replaces[kernel], "launches": launches[kernel],
-            "launches_per_step": per_step[kernel],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"] if not rehearsal else None,
-            "plain_ms": row["plain_ms"] if not rehearsal else None,
-            "bound_ms": row["bound_ms"],
-            "bound_by": "operations" if row["imads"] / INT32_IMAD_PER_S
-                        >= row["bytes"] / HBM_BYTES_PER_S else "bytes",
-            "library_ms": None,
-            "library_call": "none: no PyTorch call computes u64 modular arithmetic",
+            "replaces": replaces[kernel],
+            "launches": sum(p["launches"][kernel] for p in paths.values()),
+            "launches_by_path": {p: paths[p]["launches"][kernel] for p in paths},
+            "launches_per_step": {p: paths[p]["launches_per_step"][kernel] for p in paths},
+            "max_abs_err": row["max_abs_err"],
+            "ms": total["ms"] if not rehearsal else None,
+            "plain_ms": total["plain_ms"] if not rehearsal else None,
+            "bound_ms": total["bound_ms"],
+            "bound_by": "operations" if total["imads"] / INT32_IMAD_PER_S
+                        >= total["bytes"] / HBM_BYTES_PER_S else "bytes",
+            "library_ms": total["library_ms"] if is_galois and not rehearsal else None,
+            "library_call": ("torch.index_select (one table) / torch.gather (R tables) "
+                             "over the last axis") if is_galois else
+                            "none: no PyTorch call computes u64 modular arithmetic",
+            "per_step_by_path": {p: {f: v[f] if f == "bound_ms" or not rehearsal else None
+                                     for f in fields}
+                                 for p, v in bp.items()},
         })
     emit({"kernels": kernels})
     if rehearsal:

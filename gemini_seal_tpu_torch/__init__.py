@@ -6,20 +6,25 @@ stage on the card is a hand-written CUDA kernel for Hopper (sm_90a) under
 beside it that runs for CPU tensors.  Entry points take ``device`` (None
 means the card, and raises when none is present).
 
-This slice ports the CKKS path of bench.py: keygen, encode, public-key
-encrypt, the fused multiply + relinearize + rescale step, decrypt, decode.
+Ported so far, the CKKS device paths: keygen (secret, public, relin and
+Galois keys), encode, public-key encrypt, multiply + relinearize + rescale
+(fused and sequential), rotate, hoisted multi-rotation, the flagship train
+step (multiply + relinearize + rescale, rotate, add; ``entry()``), decrypt
+and decode.
 """
 
 from .modulus import CoeffModulus, Modulus, SecLevelType
 from .params import EncryptionParameters, SchemeType
 from .context import SealContext
 from .ciphertext import Ciphertext, Plaintext
-from .keys import KSwitchKeys, PublicKey, RelinKeys, SecretKey
+from .keys import GaloisKeys, KSwitchKeys, PublicKey, RelinKeys, SecretKey
 from .keygenerator import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
 from .encoders import CKKSEncoder
-from .models.pipelines import build_ckks_mul_relin_rescale
+from .models.pipelines import (build_ckks_mul_relin_rescale, build_ckks_rotate,
+                               build_ckks_rotate_many, build_ckks_train_step)
+from .entry import entry
 
 __all__ = [
     "CoeffModulus",
@@ -30,6 +35,7 @@ __all__ = [
     "SealContext",
     "Ciphertext",
     "Plaintext",
+    "GaloisKeys",
     "KSwitchKeys",
     "PublicKey",
     "RelinKeys",
@@ -39,4 +45,8 @@ __all__ = [
     "Decryptor",
     "CKKSEncoder",
     "build_ckks_mul_relin_rescale",
+    "build_ckks_rotate",
+    "build_ckks_rotate_many",
+    "build_ckks_train_step",
+    "entry",
 ]

@@ -142,6 +142,7 @@ class ContextData:
         self.chain_index: int = 0
         self._limb_constants: Optional[LimbConstants] = None
         self._device_rns_tool = None
+        self._galois_tool = None
 
     @property
     def parms_id(self) -> ParmsId:
@@ -162,6 +163,15 @@ class ContextData:
             self._device_rns_tool = DeviceRNSTool(
                 [m.value for m in self.parms.coeff_modulus], self.device)
         return self._device_rns_tool
+
+    @property
+    def galois_tool(self):
+        if self._galois_tool is None:
+            from .ops.galois import GaloisTool
+
+            log_n = numth.get_power_of_two(self.parms.poly_modulus_degree)
+            self._galois_tool = GaloisTool(log_n, self.device)
+        return self._galois_tool
 
 
 class SealContext:

@@ -9,6 +9,8 @@ the port's pipelines:
     ct = ciphertext_from_arrays(ctx, jct.data, jct.parms_id,
                                 jct.is_ntt_form, jct.scale)
     rk = relin_keys_from_array(ctx, np.stack([pk.data.data for pk in jrk.key(2)]))
+    gk = galois_keys_from_arrays(ctx, {e: np.stack([pk.data.data for pk in jgk.key(e)])
+                                       for e in elts})
     sk = secret_key_from_array(ctx, jkg.secret_key.data)
 """
 
@@ -18,10 +20,11 @@ import numpy as np
 
 from .ciphertext import Ciphertext
 from .context import SealContext
-from .keys import PublicKey, RelinKeys, SecretKey
+from .keys import GaloisKeys, PublicKey, RelinKeys, SecretKey
 from .ops.backend import to_tensor
 
-__all__ = ["ciphertext_from_arrays", "relin_keys_from_array", "secret_key_from_array"]
+__all__ = ["ciphertext_from_arrays", "relin_keys_from_array", "galois_keys_from_arrays",
+           "secret_key_from_array"]
 
 
 def _parms_id(parms_id) -> tuple:
@@ -46,18 +49,35 @@ def ciphertext_from_arrays(context: SealContext, data, parms_id,
                       bool(is_ntt_form), float(scale))
 
 
-def relin_keys_from_array(context: SealContext, data) -> RelinKeys:
-    """u64[n_bundles, 2, L_key, N] relinearization key (for s^2) -> RelinKeys."""
+def _kswitch_key(context: SealContext, data, what: str):
+    """u64[n_bundles, 2, L_key, N] -> one key's list of bundle PublicKeys."""
     data = np.asarray(data, dtype=np.uint64)
     pid = context.key_parms_id
     L, n = _level_shape(context, pid)
     if data.ndim != 4 or data.shape[1:] != (2, L, n):
-        raise ValueError(f"relin key data {data.shape} does not match [nb, 2, {L}, {n}]")
+        raise ValueError(f"{what} data {data.shape} does not match [nb, 2, {L}, {n}]")
+    return [PublicKey(Ciphertext(to_tensor(d, context.device), pid, True, 1.0), pid)
+            for d in data]
+
+
+def relin_keys_from_array(context: SealContext, data) -> RelinKeys:
+    """u64[n_bundles, 2, L_key, N] relinearization key (for s^2) -> RelinKeys."""
     rk = RelinKeys()
-    rk.keys = [[PublicKey(Ciphertext(to_tensor(d, context.device), pid, True, 1.0), pid)
-                for d in data]]
-    rk.parms_id = pid
+    rk.keys = [_kswitch_key(context, data, "relin key")]
+    rk.parms_id = context.key_parms_id
     return rk
+
+
+def galois_keys_from_arrays(context: SealContext, keys) -> GaloisKeys:
+    """{galois_elt: u64[n_bundles, 2, L_key, N]} -> GaloisKeys."""
+    if not keys:
+        raise ValueError("no Galois keys given")
+    gk = GaloisKeys()
+    gk.keys = [[] for _ in range(max(GaloisKeys.get_index(int(e)) for e in keys) + 1)]
+    for elt, data in keys.items():
+        gk.keys[GaloisKeys.get_index(int(elt))] = _kswitch_key(context, data, "Galois key")
+    gk.parms_id = context.key_parms_id
+    return gk
 
 
 def secret_key_from_array(context: SealContext, data) -> SecretKey:

@@ -5,20 +5,20 @@ form at the key level.  Public key: symmetric zero-encryption.
 Relinearization keys use the fork's bundle-wise hybrid key-switching keygen
 (keygenerator.cpp:325-369): decomp_mod_count = ceil(n_ct_rns / n_sp_rns)
 bundles, bundle b encrypting P * s'|_{bundle b} where P = prod of the
-special primes.  Sampling is host-side; everything else runs on the
-context's device.  Galois keys and the seed-compressed (serializable) keys
-come with later slices.
+special primes; Galois keys encrypt the secret key under the automorphism
+the same way.  Sampling is host-side; everything else runs on the context's
+device.  The seed-compressed (serializable) keys come with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 from .ciphertext import Ciphertext
 from .context import SealContext
-from .keys import PublicKey, RelinKeys, SecretKey
+from .keys import GaloisKeys, PublicKey, RelinKeys, SecretKey
 from .modulus import CIPHERTEXT_SIZE_MAX
 from .ops.backend import to_tensor
 from .ops.dyadic import dyadic_product
@@ -128,3 +128,35 @@ class KeyGenerator:
                    for p in range(1, count + 1)]
         rk.parms_id = self.context.key_parms_id
         return rk
+
+    def galois_keys(self, galois_elts: Optional[Sequence[int]] = None) -> GaloisKeys:
+        """Keys for the Galois automorphisms x -> x^elt (reference:
+        keygenerator.cpp:180-245), in element order; an element met twice
+        gets one key.  The rotated secret key comes from one ``galois``
+        launch."""
+        ctx = self.context
+        key_cd = ctx.key_context_data()
+        galois_tool = key_cd.galois_tool
+        if galois_elts is None:
+            galois_elts = galois_tool.get_elts_all()
+        n = key_cd.parms.poly_modulus_degree
+
+        gk = GaloisKeys()
+        max_index = max(GaloisKeys.get_index(e) for e in galois_elts)
+        gk.keys = [[] for _ in range(max_index + 1)]
+        for elt in galois_elts:
+            if elt % 2 == 0 or elt >= 2 * n:
+                raise ValueError("Galois element is not valid")
+            idx = GaloisKeys.get_index(elt)
+            if gk.keys[idx]:
+                continue
+            rotated = galois_tool.apply_galois_ntt(self._secret_key.data, elt)
+            gk.keys[idx] = self._generate_one_kswitch_key(rotated)
+        gk.parms_id = ctx.key_parms_id
+        return gk
+
+    def galois_keys_from_steps(self, steps: Sequence[int]) -> GaloisKeys:
+        """Keys for a list of rotation steps (reference:
+        KeyGenerator::galois_keys(const vector<int>&))."""
+        tool = self.context.key_context_data().galois_tool
+        return self.galois_keys(tool.get_elts_from_steps(list(steps)))

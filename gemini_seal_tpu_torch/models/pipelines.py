@@ -1,11 +1,13 @@
 """Evaluation pipelines over raw ciphertext tensors.
 
-Port of the CKKS multiply + relinearize + rescale step of
-gemini_seal_tpu/models/pipelines.py in its fused form.  Every step takes
-ciphertext data shaped [..., size, L, N] with any leading batch axes, as
-the JAX functions do.  PyTorch runs eagerly; each modular-arithmetic stage
-is one launch of a hand-written kernel (``tensor_product``, ``ntt``,
-``contract``, ``elementwise``) on the context's device.
+Port of the CKKS steps of gemini_seal_tpu/models/pipelines.py: multiply +
+relinearize + rescale (sequential and fused forms), rotate, the hoisted
+multi-rotation step and the flagship train step (multiply + relinearize +
+rescale, rotate, add).  Every step takes ciphertext data shaped
+[..., size, L, N] with any leading batch axes, as the JAX functions do.
+PyTorch runs eagerly; each modular-arithmetic stage is one launch of a
+hand-written kernel (``tensor_product``, ``ntt``, ``contract``,
+``elementwise``, ``galois``) on the context's device.
 """
 
 from __future__ import annotations
@@ -17,12 +19,16 @@ import torch
 from ..context import SealContext
 from ..ops import cuda
 from ..ops.backend import is_cuda
-from ..ops.dyadic import LimbConstants
-from ..ops.keyswitch import (KeySwitchPlan, compute_modup_digits, fused_moddown,
-                             keyswitch_inner_product)
+from ..ops.dyadic import LimbConstants, add_poly
+from ..ops.galois import galois_permute
+from ..ops.keyswitch import (KeySwitchPlan, batched_rotated_inner_product,
+                             compute_modup_digits, fused_moddown,
+                             keyswitch_inner_product, rescale_special, switch_key)
 from ..ops.modops import add_mod, mul_mod
+from ..ops.rnsops import divide_and_round_q_last_ntt
 
-__all__ = ["build_ckks_mul_relin_rescale", "tensor_product_plain"]
+__all__ = ["build_ckks_mul_relin_rescale", "build_ckks_rotate",
+           "build_ckks_rotate_many", "build_ckks_train_step", "tensor_product_plain"]
 
 
 def tensor_product_plain(a, b, limbs: LimbConstants):
@@ -69,15 +75,20 @@ def _tensor_product(a, b, limbs: LimbConstants):
 
 
 def build_ckks_mul_relin_rescale(context: SealContext, parms_id=None,
-                                 square: bool = False, device=None) -> Callable:
+                                 fused: bool = False, square: bool = False,
+                                 device=None) -> Callable:
     """fn(ct_a, ct_b, relin_key) -> next-level ciphertext data.
 
     ct_*: int64[..., 2, L, N] (NTT form); relin_key: int64[n_bundles, 2,
     L_key, N], all on the context's device (None means the card).  Returns
-    int64[..., 2, L-1, N], bit-identical to the JAX package's step built
-    with fused=True: the rescale is merged into the key-switch mod-down (one
-    division by P*q_last).  The JAX package's sequential form (fused=False)
-    is not ported yet, so this builder has no ``fused`` option.
+    int64[..., 2, L-1, N], bit-identical to the JAX package's step of the
+    same form.
+
+    fused=False (the JAX default): key switch with the special-prime
+    rescale (switch_key), add, then divide_and_round_q_last_ntt.
+    fused=True merges the rescale into the key-switch mod-down (one
+    division by P*q_last): one NTT round trip per component saved; decrypts
+    equal to the sequential form but is not bit-identical to it.
 
     square=True returns fn(ct, relin_key) using the 3-product square.
     """
@@ -87,17 +98,118 @@ def build_ckks_mul_relin_rescale(context: SealContext, parms_id=None,
     cd = context.get_context_data(parms_id)
     limbs = cd.limb_constants
     plan = KeySwitchPlan(context, parms_id)
-    plan.fused_drop_constants()
 
-    def step_fused(a, b, relin_key):
-        c0, c1, c2 = _tensor_product(a.contiguous(), None if b is None else b.contiguous(),
-                                     limbs)
-        ct_k = compute_modup_digits(c2, plan, True)
-        acc0, acc1 = keyswitch_inner_product(ct_k, relin_key, plan, True, raw=True)
-        out0 = fused_moddown(c0, acc0, plan)
-        out1 = fused_moddown(c1, acc1, plan)
-        return torch.stack([out0, out1], dim=-3)
+    def product(a, b):
+        return _tensor_product(a.contiguous(), None if b is None else b.contiguous(), limbs)
+
+    if fused:
+        plan.fused_drop_constants()
+
+        def step(a, b, relin_key):
+            c0, c1, c2 = product(a, b)
+            ct_k = compute_modup_digits(c2, plan, True)
+            acc0, acc1 = keyswitch_inner_product(ct_k, relin_key, plan, True, raw=True)
+            out0 = fused_moddown(c0, acc0, plan)
+            out1 = fused_moddown(c1, acc1, plan)
+            return torch.stack([out0, out1], dim=-3)
+    else:
+        tool = cd.device_rns_tool
+        tables = cd.ntt_tables
+
+        def step(a, b, relin_key):
+            c0, c1, c2 = product(a, b)
+            d0, d1 = switch_key(c2, relin_key, plan, True)
+            ct = torch.stack([add_poly(c0, d0, limbs), add_poly(c1, d1, limbs)], dim=-3)
+            return divide_and_round_q_last_ntt(ct, tool, tables)
 
     if square:
-        return lambda a, relin_key: step_fused(a, None, relin_key)
-    return step_fused
+        return lambda a, relin_key: step(a, None, relin_key)
+    return step
+
+
+def build_ckks_rotate(context: SealContext, steps: int, parms_id=None,
+                      device=None) -> Callable:
+    """fn(ct, galois_key) -> rotated ciphertext data (same level).
+
+    ct: int64[..., 2, L, N] (NTT form); galois_key: int64[n_bundles, 2,
+    L_key, N], the key of the step's Galois element.  One ``galois`` launch
+    permutes both components, then c1 is key-switched back to s.
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    cd = context.get_context_data(parms_id)
+    limbs = cd.limb_constants
+    tool = cd.galois_tool
+    elt = tool.get_elt_from_step(steps)
+    tool.ntt_tables([elt])  # upload the table now, not in the first step
+    plan = KeySwitchPlan(context, parms_id)
+
+    def step(ct, galois_key):
+        rot = tool.apply_galois_ntt(ct, elt)
+        d0, d1 = switch_key(rot[..., 1, :, :], galois_key, plan, True)
+        return torch.stack([add_poly(rot[..., 0, :, :].contiguous(), d0, limbs), d1],
+                           dim=-3)
+
+    return step
+
+
+def build_ckks_train_step(context: SealContext, rotate_steps: int = 1,
+                          device=None) -> Callable:
+    """The flagship composite step: multiply + relinearize + rescale (the
+    sequential form) + rotate + add, the inner loop of encrypted
+    dot-product / polynomial evaluation workloads.
+
+    fn(ct_a, ct_b, relin_key, galois_key) -> int64[..., 2, L-1, N].
+    """
+    context.check_device(device)
+    parms_id = context.first_parms_id
+    mul_step = build_ckks_mul_relin_rescale(context, parms_id, device=device)
+    next_id = context.get_context_data(parms_id).next_context_data.parms_id
+    rot_step = build_ckks_rotate(context, rotate_steps, next_id, device=device)
+    limbs = context.get_context_data(next_id).limb_constants
+
+    def step(a, b, relin_key, galois_key):
+        prod = mul_step(a, b, relin_key)
+        rot = rot_step(prod, galois_key)
+        return add_poly(prod, rot, limbs)
+
+    return step
+
+
+def build_ckks_rotate_many(context: SealContext, steps, parms_id=None,
+                           prepermuted_keys: bool = False, device=None) -> Callable:
+    """fn(ct, galois_keys_stack) -> [n_steps, ..., 2, L, N] rotated batch.
+
+    Hoisted rotations: one mod-up digit decomposition feeds every step's
+    key-switch inner product (batched_rotated_inner_product); c0 is
+    permuted for every step in one ``galois`` launch.
+    galois_keys_stack: int64[n_steps, n_bundles, 2, L_key, N], key(elt_i)
+    for each step in order (GaloisKeys.stacked).  The result is a view
+    with the step axis first, as the JAX function's moveaxis.
+
+    prepermuted_keys=True (counter-rotated keys) is not ported yet.
+    """
+    context.check_device(device)
+    if prepermuted_keys:
+        raise NotImplementedError("build_ckks_rotate_many: prepermuted_keys=True is not "
+                                  "ported yet")
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    cd = context.get_context_data(parms_id)
+    limbs = cd.limb_constants
+    tool = cd.galois_tool
+    rot_tabs = tool.ntt_tables(tool.get_elts_from_steps(list(steps)))
+    plan = KeySwitchPlan(context, parms_id)
+
+    def step(ct, keys_stack):
+        ct_k = compute_modup_digits(ct[..., 1, :, :], plan, True)    # hoisted
+        a0, a1 = batched_rotated_inner_product(ct_k, rot_tabs, keys_stack,
+                                               plan)              # [..., R, n_ext, N]
+        d0 = rescale_special(a0, plan, is_ntt_output=True)
+        d1 = rescale_special(a1, plan, is_ntt_output=True)
+        p0 = galois_permute(ct[..., 0, :, :].contiguous(), rot_tabs)  # [..., R, L, N]
+        out = torch.stack([add_poly(p0, d0, limbs), d1], dim=-3)
+        return out.movedim(-4, 0)                                 # [R, ..., 2, L, N]
+
+    return step

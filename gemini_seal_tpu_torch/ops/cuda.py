@@ -51,6 +51,7 @@ KERNELS = {
         _I, _I, _I, _I, _I, _I, _I, _P]),
     "elementwise": ("elementwise.cu", "gst_elementwise", [
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "galois": ("galois.cu", "gst_galois", [_P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -1,6 +1,6 @@
 """Card tests: each hand-written kernel against its plain PyTorch version on
-the same inputs on the card, bit for bit, and the fused step against the
-plain path.  They need a CUDA card and skip without one; on a machine with
+the same inputs on the card, bit for bit, and the fused step, the train
+step and the hoisted rotations against the plain path.  They need a CUDA card and skip without one; on a machine with
 an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
@@ -18,6 +18,7 @@ from gemini_seal_tpu_torch.models.pipelines import _tensor_product
 from gemini_seal_tpu_torch.ops import cuda
 from gemini_seal_tpu_torch.ops import ntt as tn
 from gemini_seal_tpu_torch.ops.backend import plain_versions, to_tensor
+from gemini_seal_tpu_torch.ops.galois import GaloisTool, galois_permute
 from gemini_seal_tpu_torch.ops.dyadic import LimbConstants
 from gemini_seal_tpu_torch.ops.modops import contract_mulmod_128, rns_elementwise
 from gemini_seal_tpu_torch.utils.numth import get_primes
@@ -148,7 +149,7 @@ def test_fused_step_matches_plain_path(card, square):
     ct = T.Encryptor(ctx, kg.public_key()).encrypt(encoder.encode(vals, 2.0 ** 40))
     rk = kg.relin_keys().stacked(2)
     a = torch.stack([ct.data] * 3)
-    fn = T.build_ckks_mul_relin_rescale(ctx, square=square)
+    fn = T.build_ckks_mul_relin_rescale(ctx, fused=True, square=square)
     got, want = _both(fn, *((a, rk) if square else (a, a, rk)))
     assert torch.equal(got, want)
     cd = ctx.first_context_data()
@@ -157,3 +158,64 @@ def test_fused_step_matches_plain_path(card, square):
         T.Ciphertext(got[2], cd.next_context_data.parms_id, True, scale))
     for g, v in zip(encoder.decode(out), vals):
         assert abs(g - v * v) < 1e-4
+
+
+@pytest.mark.parametrize("log_n", [10, 13])
+@pytest.mark.parametrize("R", [1, 8])
+def test_galois_kernel(card, log_n, R):
+    n = 1 << log_n
+    tool = GaloisTool(log_n, card)
+    tabs = tool.ntt_tables(tool.get_elts_from_steps(list(range(1, R + 1))))
+    x = to_tensor(_res(np.random.default_rng(log_n + R), _mods(n), (5,), n), card)
+    got, want = _both(galois_permute, x, tabs)
+    assert got.shape == (5, R, 3, n)
+    assert torch.equal(got, want)
+    for r in range(R):
+        assert torch.equal(got[:, r], x.index_select(-1, tabs[r]))
+
+
+def test_galois_kernel_rejects_what_it_cannot_take(card):
+    tool = GaloisTool(10, card)
+    tabs = tool.ntt_tables([3])
+    x = torch.zeros((3, 2048), dtype=torch.int64, device=card)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        galois_permute(x, tabs)
+    with pytest.raises(TypeError, match="int64"):
+        galois_permute(torch.zeros((3, 1024), dtype=torch.int32, device=card), tabs)
+    with pytest.raises(ValueError, match="tabs"):
+        galois_permute(torch.zeros((3, 512), dtype=torch.int64, device=card), tabs)
+    shifted = torch.cat([tabs.reshape(-1), tabs.reshape(-1)])[1:1025].reshape(1, 1024)
+    with pytest.raises(ValueError, match="aligned"):
+        galois_permute(torch.zeros((3, 1024), dtype=torch.int64, device=card), shifted)
+
+
+def test_train_step_and_rotate_many_match_plain_path(card):
+    n = 1024
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [50, 40, 40, 50]))
+    parms.set_random_seed(tuple(range(71, 79)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none)
+    kg = T.KeyGenerator(ctx)
+    encoder = T.CKKSEncoder(ctx)
+    vals = [0.5, -1.25, 3.0, 0.25]
+    ct = T.Encryptor(ctx, kg.public_key()).encrypt(encoder.encode(vals, 2.0 ** 40))
+    rk = kg.relin_keys().stacked(2)
+    steps = [1, 2, 3]
+    tool = ctx.first_context_data().galois_tool
+    elts = tool.get_elts_from_steps(steps)
+    gk = kg.galois_keys(elts)
+    a = torch.stack([ct.data] * 2)
+    train = T.build_ckks_train_step(ctx)
+    got, want = _both(train, a, a, rk, gk.stacked(elts[0]))
+    assert torch.equal(got, want)
+    rmany = T.build_ckks_rotate_many(ctx, steps)
+    got, want = _both(rmany, a, gk.stacked(*elts))
+    assert torch.equal(got, want)
+    dec = T.Decryptor(ctx, kg.secret_key)
+    padded = vals + [0.0] * 4
+    for r, s in enumerate(steps):
+        out = encoder.decode(dec.decrypt(T.Ciphertext(got[r, 1].contiguous(), ct.parms_id,
+                                                      True, ct.scale)))
+        for i in range(len(vals)):
+            assert abs(out[i] - padded[i + s]) < 1e-4

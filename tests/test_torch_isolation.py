@@ -65,7 +65,11 @@ def test_entry_points_default_to_the_card():
     ctx = T.SealContext(parms, sec_level=T.SecLevelType.none, device="cpu")
     for make in (lambda: T.KeyGenerator(ctx),
                  lambda: T.CKKSEncoder(ctx),
-                 lambda: T.build_ckks_mul_relin_rescale(ctx)):
+                 lambda: T.build_ckks_mul_relin_rescale(ctx),
+                 lambda: T.build_ckks_rotate(ctx, 1),
+                 lambda: T.build_ckks_rotate_many(ctx, [1, 2]),
+                 lambda: T.build_ckks_train_step(ctx),
+                 lambda: T.entry()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     kg = T.KeyGenerator(ctx, device="cpu")
@@ -83,10 +87,12 @@ def test_chip_smoke_cpu_rehearsal():
     lines = out.stdout.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "rehearsal": "cpu"}
     kernels = json.loads(lines[-2])["kernels"]
-    assert sorted(k["name"] for k in kernels) == ["contract", "elementwise", "ntt",
+    assert sorted(k["name"] for k in kernels) == ["contract", "elementwise", "galois", "ntt",
                                                   "tensor_product"]
     forms = [json.loads(l)["form"] for l in lines if '"batch2"' in l]
-    assert forms == ["multiply", "square"]
+    assert forms == ["multiply", "square", "sequential_multiply", "train_step", "rotate_many"]
+    paths = [json.loads(l)["path"] for l in lines if '"main_path"' in l]
+    assert paths == ["mul_relin_rescale", "train_step", "rotate_many"]
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -1,7 +1,8 @@
-"""The port's fused key switch (gemini_seal_tpu_torch.ops.keyswitch) against
-the JAX package: compute_modup_digits, the raw inner product and
-fused_moddown, with one and two special primes and a short last bundle
-(n_ct % n_sp != 0), exact equality.
+"""The port's key switch (gemini_seal_tpu_torch.ops.keyswitch) against the
+JAX package: compute_modup_digits, the raw inner product, fused_moddown,
+rescale_special, switch_key and batched_rotated_inner_product, with one and
+two special primes and a short last bundle (n_ct % n_sp != 0), exact
+equality.
 """
 
 import jax
@@ -77,8 +78,9 @@ def test_modup_inner_product_moddown(case):
 
 
 def test_non_ntt_target_and_sequential_forms_raise():
-    """The non-NTT (BFV-domain) mod-up is ported with its lazy forward lift;
-    the rescale_special form is not, and says so."""
+    """The non-NTT (BFV-domain) mod-up is ported with its lazy forward lift,
+    and the sequential (raw=False) inner product ends in rescale_special;
+    a key with fewer bundles than the level needs raises."""
     jctx, tctx = _contexts(*CASES["one_special"])
     pid = jctx.first_parms_id
     jplan, tplan = jk.KeySwitchPlan(jctx, pid), tk.KeySwitchPlan(tctx, pid)
@@ -87,5 +89,53 @@ def test_non_ntt_target_and_sequential_forms_raise():
     want = np.asarray(jax.jit(lambda x: jk.compute_modup_digits(x, jplan, False))(target))
     got = tk.compute_modup_digits(to_tensor(target, "cpu"), tplan, False)
     np.testing.assert_array_equal(want, to_numpy(got))
-    with pytest.raises(NotImplementedError):
-        tk.keyswitch_inner_product(got, None, tplan, True, raw=False)
+    key_mods = [m.value for m in jctx.key_context_data().parms.coeff_modulus]
+    key = to_tensor(np.stack([_residues(rng, key_mods, (2,))
+                              for _ in range(jplan.n_bundles)]), "cpu")
+    raw = tk.keyswitch_inner_product(got, key, tplan, False, raw=True)
+    seq = tk.keyswitch_inner_product(got, key, tplan, False)
+    for r, s in zip(raw, seq):
+        np.testing.assert_array_equal(to_numpy(tk.rescale_special(r, tplan, False)),
+                                      to_numpy(s))
+    with pytest.raises(RuntimeError):
+        tk.keyswitch_inner_product(got, key[:1], tplan, False)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_rescale_special_switch_key_and_rotated_inner_product(case):
+    """rescale_special (NTT and power-basis output), switch_key and
+    batched_rotated_inner_product at R=3.  The JAX functions run on numpy
+    inputs here, through the package's host-plane dispatch (ops/backend.py
+    xp): the same code as under jit, without a compile per ring."""
+    bits, nsp = CASES[case]
+    jctx, tctx = _contexts(bits, nsp)
+    pid = jctx.first_parms_id
+    jplan, tplan = jk.KeySwitchPlan(jctx, pid), tk.KeySwitchPlan(tctx, pid)
+    rng = np.random.default_rng(len(bits) * 10 + nsp + 1)
+    key_mods = [m.value for m in jctx.key_context_data().parms.coeff_modulus]
+    acc = _residues(rng, jplan.ext_moduli, (2,))                  # [2, n_ext, N]
+    target = _residues(rng, jplan.ext_moduli[: jplan.n_ct_rns], (2,))
+    keys = np.stack([np.stack([_residues(rng, key_mods, (2,))
+                               for _ in range(jplan.n_bundles)]) for _ in range(3)])
+    tool = tctx.first_context_data().galois_tool
+    elts = tool.get_elts_from_steps([1, -1, 3])
+    tabs = np.stack([tool._ntt_table(e) for e in elts])
+
+    def ref(acc, target, keys):
+        digits = jk.compute_modup_digits(target, jplan, True)
+        return (jk.rescale_special(acc, jplan, True), jk.rescale_special(acc, jplan, False),
+                jk.switch_key(target, keys[0], jplan, True),
+                jk.batched_rotated_inner_product(digits, tabs, keys, jplan))
+
+    want = ref(acc, target, keys)
+    t_acc, t_target, t_keys = (to_tensor(v, "cpu") for v in (acc, target, keys))
+    got = (tk.rescale_special(t_acc, tplan, True), tk.rescale_special(t_acc, tplan, False),
+           tk.switch_key(t_target, t_keys[0], tplan, True),
+           tk.batched_rotated_inner_product(tk.compute_modup_digits(t_target, tplan, True),
+                                            tool.ntt_tables(elts), t_keys, tplan))
+    for w, g in zip(want[:2], got[:2]):
+        np.testing.assert_array_equal(np.asarray(w), to_numpy(g))
+    for w2, g2 in zip(want[2:], got[2:]):
+        for w, g in zip(w2, g2):
+            np.testing.assert_array_equal(np.asarray(w), to_numpy(g))
+    assert got[3][0].shape == (2, 3, jplan.n_ext, N)

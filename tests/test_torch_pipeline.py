@@ -78,7 +78,8 @@ def test_fused_step_equal_and_decodes(both, square):
     jfn = b["jsteps"][square]
     want = np.asarray(jfn(a, b["jrk"]) if square else jfn(a, a, b["jrk"]))
     ta = torch.stack([b["tct"].data] * 2)
-    tfn = T.build_ckks_mul_relin_rescale(b["tctx"], square=square, device="cpu")
+    tfn = T.build_ckks_mul_relin_rescale(b["tctx"], fused=True, square=square,
+                                         device="cpu")
     got = tfn(ta, b["trk"]) if square else tfn(ta, ta, b["trk"])
     np.testing.assert_array_equal(want, to_numpy(got))
 
@@ -97,7 +98,7 @@ def test_convert_carries_jax_objects_into_the_step(both):
                                         jct.scale)
     rk = convert.relin_keys_from_array(tctx, b["jrk"])
     sk = convert.secret_key_from_array(tctx, b["jkg"].secret_key.data)
-    step = T.build_ckks_mul_relin_rescale(tctx, device="cpu")
+    step = T.build_ckks_mul_relin_rescale(tctx, fused=True, device="cpu")
     ta = torch.stack([ct.data] * 2)  # the batch shape the jitted step saw
     got = step(ta, ta, rk.stacked(2))
     a = np.stack([np.asarray(jct.data)] * 2)
