@@ -4,10 +4,10 @@
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # N=1024 on the CPU, plain versions
 
-The ring is bench.py's: N=8192, CoeffModulus.create(8192, [50, 40, 40, 50])
-with one special prime, seed range(71, 79), scale 2^40.  Three paths run on
-it, each driven once with every launch counter set to 0 just before it and
-read just after it:
+Five paths run, each driven once with every launch counter set to 0 just
+before it and read just after it.  Three are CKKS, on bench.py's ring
+(N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
+seed range(71, 79), scale 2^40):
 
 - mul_relin_rescale (bench.py's step): keygen, encode of [1.001] * slots,
   public-key encrypt, broadcast to batch 128, the fused multiply +
@@ -20,24 +20,39 @@ read just after it:
   encrypt v, batch 16, eight rotations from one mod-up, decrypt, decode
   (each within 1e-4 of v shifted by its step).
 
+Two are BFV, on bench_all.py's rings with seed range(8) and
+t = PlainModulus.batching(N, 20), each with keygen, BatchEncoder encode of
+a seeded slot vector v in [0, t), public-key encrypt, batch 128, the step,
+decrypt and decode (exactly v^2 mod t):
+
+- bfv_mul_relin_chain (BASELINE config 3): N=8192,
+  CoeffModulus.create(8192, [50, 40, 40, 40, 50]), SecLevelType.none; the
+  BEHZ multiply + relinearize and the fused mod-switch to the last level;
+- bfv_mul_relin (BASELINE config 1): N=4096, CoeffModulus.bfv_default(4096),
+  SecLevelType.tc128; the BEHZ multiply + relinearize.
+
 The script
 
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
-2. builds the five kernels (nvcc, one process each, in parallel) and
+2. builds the seven kernels (nvcc, one process each, in parallel) and
    prints each one's -Xptxas -v summary;
-3. drives the three paths, recording each kernel call;
+3. drives the five paths, recording each kernel call;
 4. holds every distinct recorded kernel call (function, op, shapes)
    against its plain PyTorch version on the same inputs on the card
    (bit-exact), and times each call of each path's step both ways with
    CUDA events beside the least time the card could take for the same
    work (and, for ``galois``, beside torch.index_select / torch.gather);
+   ``scale_round``, which runs in encryption and decryption only, is timed
+   at those calls;
 5. checks batch 2 of the fused multiply and square, the sequential
-   multiply, the train step and the hoisted rotations bit for bit against
-   the port's plain path on the card;
+   multiply, the train step, the hoisted rotations, the BFV chain (fused
+   and per-level drops), the BFV multiply and square at N=8192 and the BFV
+   multiply at N=4096 bit for bit against the port's plain path on the
+   card, and each one's decode;
 6. times each step at its full batch (ops/s or rotations/s), the
-   sequential multiply + relinearize + rescale of the train step alone
-   too, and profiles each (device time by kernel, device busy share),
-   with the recorder removed;
+   sequential CKKS step and the BFV multiply and square at N=8192 alone
+   too, and profiles each (device time by kernel, device busy share), with
+   the recorder removed;
 7. prints the kernels line and, last, the result line.
 
 Any mismatch raises and the script exits non-zero; it exits non-zero with
@@ -66,15 +81,20 @@ IMAD_MULMOD = 31
 IMAD_BARRETT128 = 24
 IMAD_SHOUP = 10
 IMAD_MAC = 7
+IMAD_BARRETT64 = 7
 ELEMENTWISE_MULMODS = {"add": 0, "sub": 0, "neg": 0, "mul": 1, "muladd": 1,
-                       "addmul": 1, "barrett64": 0}
+                       "addmul": 1, "barrett64": 0, "submul": 1}
 
 # the kernels each path's step must launch
 PATH_KERNELS = {
     "mul_relin_rescale": ("ntt", "tensor_product", "contract", "elementwise"),
     "train_step": ("ntt", "tensor_product", "contract", "elementwise", "galois"),
     "rotate_many": ("ntt", "contract", "elementwise", "galois"),
+    "bfv_mul_relin_chain": ("ntt", "tensor_product", "contract", "elementwise", "behz"),
+    "bfv_mul_relin": ("ntt", "tensor_product", "contract", "elementwise", "behz"),
 }
+# ... and the kernels each BFV path's encryption and decryption must launch
+PHASE_KERNELS = {"encode_encrypt": ("scale_round",), "decrypt_decode": ("scale_round",)}
 
 
 def emit(obj) -> None:
@@ -98,14 +118,16 @@ class Recorder:
 
     def __init__(self):
         from gemini_seal_tpu_torch.models import pipelines
-        from gemini_seal_tpu_torch.ops import galois, modops, ntt
+        from gemini_seal_tpu_torch.ops import galois, modops, ntt, rnsops
 
         kernel_of = {ntt.ntt_forward_lazy: "ntt", ntt.ntt_forward: "ntt",
                      ntt.ntt_inverse_lazy: "ntt", ntt.ntt_inverse: "ntt",
                      pipelines._tensor_product: "tensor_product",
                      modops.contract_mulmod_128: "contract",
                      modops.rns_elementwise: "elementwise",
-                     galois.galois_permute: "galois"}
+                     galois.galois_permute: "galois",
+                     rnsops.behz: "behz",
+                     rnsops.scale_round: "scale_round"}
         self.calls = []
         self.path = None
         self.phase = None
@@ -216,12 +238,27 @@ def tensors_of(fn_name, args, kwargs):
     return out
 
 
+def spans_of(t):
+    """(start, end) byte spans of a tensor's elements: one span when it is
+    contiguous, one per row (last axis, unit stride) for a view that picks
+    rows out of a larger tensor."""
+    es, ptr = t.element_size(), t.data_ptr()
+    if t.is_contiguous():
+        return [(ptr, ptr + t.numel() * es)]
+    if t.stride(-1) != 1:
+        raise ValueError("spans_of: last axis must have unit stride")
+    offs = [0]
+    for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+        offs = [o + i * stride for o in offs for i in range(size)]
+    row = t.shape[-1] * es
+    return [(ptr + o * es, ptr + o * es + row) for o in offs]
+
+
 def bytes_once(tensors) -> int:
     """Bytes of the union of the tensors' memory: a storage that two
     arguments share (the step squares by passing one ciphertext twice) is
-    read once."""
-    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
-                   for t in tensors if t.numel())
+    read once, and a view of some rows counts only those rows."""
+    spans = sorted(sp for t in tensors if t.numel() for sp in spans_of(t))
     total, end = 0, 0
     for lo, hi in spans:
         if hi > end:
@@ -230,11 +267,37 @@ def bytes_once(tensors) -> int:
     return total
 
 
+def needed_inputs(kernel, args, kwargs):
+    """The call's arguments with each input cut to the rows the function
+    needs: a ``contract`` input row whose weights (or pre-scale) are all 0
+    adds nothing to the sum (fastbconv_sk reads the whole Bsk tensor, its
+    x_sk row at weight 0), and ``behz`` sk_tail needs only the x_sk row of
+    its aux tensor.  Returns (args, kwargs, the contract's needed K)."""
+    if kernel == "contract":
+        a, w = args[0], args[1]
+        live = w.ne(0).flatten(2).any(-1).any(0)  # w [G, K, J, Nw] -> [K]
+        if kwargs.get("prescale") is not None:
+            live &= kwargs["prescale"][0].ne(0).any(0)  # s [G, K]
+        ks = [k for k in range(w.shape[1]) if bool(live[k])]
+        if len(ks) < w.shape[1]:
+            rows = [a.select(-3, k) for k in ks]  # a [..., G, K, Ja, N]
+            return [rows] + list(args[1:]), kwargs, len(ks)
+        return args, kwargs, len(ks)
+    if kernel == "behz" and args[0] == "sk_tail":
+        kw = dict(kwargs)
+        if "aux" in kw:
+            kw["aux"] = kw["aux"][..., -1:, :]
+            return args, kw, None
+        return list(args[:3]) + [args[3][..., -1:, :]] + list(args[4:]), kw, None
+    return args, kwargs, None
+
+
 def work(kernel, fn_name, args, kwargs, result):
     """(bytes, 32-bit IMADs) the call needs: every input read once, every
     output written once, and the integer multiplies of its arithmetic."""
     outs = result if isinstance(result, tuple) else (result,)
-    nbytes = bytes_once(tensors_of(fn_name, args, kwargs)) + bytes_once(outs)
+    need_args, need_kwargs, live_k = needed_inputs(kernel, args, kwargs)
+    nbytes = bytes_once(tensors_of(fn_name, need_args, need_kwargs)) + bytes_once(outs)
     if kernel == "ntt":
         x, tables = args
         rows = x.numel() // x.shape[-1]
@@ -247,11 +310,29 @@ def work(kernel, fn_name, args, kwargs, result):
     elif kernel == "contract":
         a, w = args[0], args[1]
         K = w.shape[1]
-        ops = outs[0].numel() * (K * IMAD_MAC + IMAD_BARRETT128)
-        if kwargs.get("prescale") is not None:  # once per input element
-            ops += a.numel() * IMAD_MULMOD
+        ops = outs[0].numel() * (live_k * IMAD_MAC + IMAD_BARRETT128)
+        if kwargs.get("prescale") is not None:  # once per needed input element
+            ops += a.numel() // K * live_k * IMAD_MULMOD
     elif kernel == "galois":
         ops = 0  # a permutation: bytes only
+    elif kernel == "behz":
+        # sm_mrq: low-word multiply for r, the 128-bit q*r, barrett_reduce_128
+        # and a mul_mod per output; sk_tail: alpha once per coefficient and
+        # one mul_mod per output (the selected branch)
+        out = outs[0]
+        if args[0] == "sm_mrq":
+            ops = out.numel() * (3 + IMAD_MAC + IMAD_BARRETT128 + IMAD_MULMOD)
+        else:
+            ops = out.numel() * IMAD_MULMOD + (out.numel() // out.shape[-2]) * IMAD_MULMOD
+    elif kernel == "scale_round":
+        # plain modes: the fix once per coefficient (m * (q mod t) and the
+        # divmod quotient), then Delta * m and barrett_reduce_128 per output;
+        # t_gamma: three mul_mods and two barrett_reduce_64 per output
+        out = outs[0]
+        if args[0] == "t_gamma":
+            ops = out.numel() * (3 * IMAD_MULMOD + 2 * IMAD_BARRETT64)
+        else:
+            ops = (out.shape[-1] + out.numel()) * (IMAD_MAC + IMAD_BARRETT128)
     else:
         ops = outs[0].numel() * ELEMENTWISE_MULMODS[args[0]] * IMAD_MULMOD
     return nbytes, ops
@@ -333,25 +414,41 @@ def main(argv=None) -> int:
               "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                           for k, v in report.items()}})
 
-    # 3. the three paths, each once, with the counters from 0 ------------------
+    # 3. the five paths, each once, with the counters from 0 -------------------
     recorder = Recorder()
     paths = {}
+    phase_launches = {}
+    mark = {}
+
+    def set_phase(name):
+        """Start phase `name` of the running path (None: the path is over);
+        the launches of the phase that ends are kept under its name."""
+        if recorder.phase is not None:
+            phase_launches[recorder.phase] = {k: cuda.LAUNCHES[k] - mark[k] for k in mark}
+        mark.clear()
+        mark.update(cuda.LAUNCHES)
+        recorder.phase = name
 
     def begin(path):
         recorder.path = path
         cuda.reset_launches()
+        phase_launches.clear()
         return time.perf_counter()
 
     def end(path, t0, per_step, **extra):
-        recorder.phase = None
+        set_phase(None)
         sync()
         paths[path] = {"launches": dict(cuda.LAUNCHES), "launches_per_step": per_step,
+                       "launches_by_phase": dict(phase_launches),
                        "seconds": time.perf_counter() - t0, **extra}
         emit({"phase": "main_path", "path": path, **paths[path]})
         missing = [k for k in PATH_KERNELS[path]
                    if paths[path]["launches"][k] == 0 or per_step[k] == 0]
+        if path.startswith("bfv"):
+            missing += [f"{k} ({ph})" for ph, ks in PHASE_KERNELS.items() for k in ks
+                        if phase_launches[ph][k] == 0]
         if not rehearsal and missing:
-            raise AssertionError(f"kernels not launched on {path}'s step: {missing}")
+            raise AssertionError(f"kernels not launched on {path}: {missing}")
 
     def count_step(fn, *fargs):
         before = dict(cuda.LAUNCHES)
@@ -363,7 +460,7 @@ def main(argv=None) -> int:
 
     # 3a. mul_relin_rescale: bench.py's fused step (as before this slice)
     t0 = begin("mul_relin_rescale")
-    recorder.phase = "keygen"
+    set_phase("keygen")
     parms = T.EncryptionParameters(T.SchemeType.CKKS)
     parms.set_poly_modulus_degree(n)
     parms.set_coeff_modulus(T.CoeffModulus.create(n, [50, 40, 40, 50]))
@@ -377,7 +474,7 @@ def main(argv=None) -> int:
     emit({"phase": "keygen", "host_prng": "native g++ build" if native.available()
           else "pure python", "seconds": keygen_s})
 
-    recorder.phase = "encode_encrypt"
+    set_phase("encode_encrypt")
     encoder = T.CKKSEncoder(ctx, device=device)
     enc = T.Encryptor(ctx, pk, device=device)
     dec = T.Decryptor(ctx, kg.secret_key, device=device)
@@ -386,12 +483,12 @@ def main(argv=None) -> int:
     ct = enc.encrypt(encoder.encode(vals, scale))
     a = ct.data.expand((batch,) + tuple(ct.data.shape)).contiguous()
 
-    recorder.phase = "step"
+    set_phase("step")
     step = T.build_ckks_mul_relin_rescale(ctx, fused=True, device=device)
     square = T.build_ckks_mul_relin_rescale(ctx, fused=True, square=True, device=device)
     out, per_step = count_step(step, a, a, rk)
 
-    recorder.phase = "decrypt_decode"
+    set_phase("decrypt_decode")
     first_cd = ctx.first_context_data()
     next_cd = first_cd.next_context_data
     out_scale = scale * scale / first_cd.parms.coeff_modulus[-1].value
@@ -408,16 +505,16 @@ def main(argv=None) -> int:
 
     # 3b. train_step: the flagship step (sequential mul + rotate + add)
     t0 = begin("train_step")
-    recorder.phase = "keygen"
+    set_phase("keygen")
     elt1 = first_cd.galois_tool.get_elt_from_step(1)
     gk1 = kg.galois_keys([elt1]).stacked(elt1)
-    recorder.phase = "encode_encrypt"
+    set_phase("encode_encrypt")
     ct_v = enc.encrypt(encoder.encode(v.tolist(), scale))
     av = ct_v.data.expand((batch,) + tuple(ct_v.data.shape)).contiguous()
-    recorder.phase = "step"
+    set_phase("step")
     train = T.build_ckks_train_step(ctx, rotate_steps=1, device=device)
     out, per_step = count_step(train, av, av, rk, gk1)
-    recorder.phase = "decrypt_decode"
+    set_phase("decrypt_decode")
     got = encoder.decode(dec.decrypt(T.Ciphertext(out[0], next_cd.parms_id, True, out_scale)))
     want_train = v * v + np.roll(v * v, -1)
     err = max_err(got, want_train)
@@ -427,17 +524,17 @@ def main(argv=None) -> int:
 
     # 3c. rotate_many: hoisted rotations by steps 1..R from one mod-up
     t0 = begin("rotate_many")
-    recorder.phase = "keygen"
+    set_phase("keygen")
     gks = kg.galois_keys_from_steps(rot_steps)
     elts = first_cd.galois_tool.get_elts_from_steps(rot_steps)
     keys_stack = gks.stacked(*elts)
-    recorder.phase = "encode_encrypt"
+    set_phase("encode_encrypt")
     ct_r = enc.encrypt(encoder.encode(v.tolist(), scale))
     ar = ct_r.data.expand((rot_batch,) + tuple(ct_r.data.shape)).contiguous()
-    recorder.phase = "step"
+    set_phase("step")
     rmany = T.build_ckks_rotate_many(ctx, rot_steps, device=device)
     out, per_step = count_step(rmany, ar, keys_stack)
-    recorder.phase = "decrypt_decode"
+    set_phase("decrypt_decode")
     err = 0.0
     for r, s in enumerate(rot_steps):
         got = encoder.decode(dec.decrypt(T.Ciphertext(out[r, 0], ct_r.parms_id, True,
@@ -446,12 +543,64 @@ def main(argv=None) -> int:
     end("rotate_many", t0, per_step, out_shape=list(out.shape), max_abs_decode_err=err)
     if not err < 1e-4:
         raise AssertionError(f"rotate_many decodes to {err} from the shifted v")
+
+    # 3d-e. the BFV paths (BASELINE configs 3 and 1): each decodes v^2 mod t
+    def bfv_path(path, n_bfv, coeff_modulus, sec_level, chain):
+        t0 = begin(path)
+        set_phase("keygen")
+        parms = T.EncryptionParameters(T.SchemeType.BFV)
+        parms.set_poly_modulus_degree(n_bfv)
+        parms.set_coeff_modulus(coeff_modulus)
+        parms.set_plain_modulus(T.PlainModulus.batching(n_bfv, 20))
+        parms.set_random_seed(tuple(range(8)))
+        bctx = T.SealContext(parms, sec_level=sec_level, device=device)
+        bkg = T.KeyGenerator(bctx, device=device)
+        brk = bkg.relin_keys().stacked(2)
+        set_phase("encode_encrypt")
+        be = T.BatchEncoder(bctx, device=device)
+        benc = T.Encryptor(bctx, bkg.public_key(), device=device)
+        bdec = T.Decryptor(bctx, bkg.secret_key, device=device)
+        t = parms.plain_modulus.value
+        vb = np.random.default_rng(2025).integers(0, t, n_bfv)
+        bct = benc.encrypt(be.encode(vb.tolist()))
+        ab = bct.data.expand((batch,) + tuple(bct.data.shape)).contiguous()
+        set_phase("step")
+        if chain:
+            fn = T.build_bfv_mul_relin_modswitch(bctx, fused_drop=True, device=device)
+            out_id = bctx.last_parms_id
+        else:
+            fn = T.build_bfv_mul_relin(bctx, device=device)
+            out_id = bctx.first_parms_id
+        out, per_step = count_step(fn, ab, ab, brk)
+        set_phase("decrypt_decode")
+        want = (vb.astype(object) ** 2 % t).tolist()
+
+        def decodes(data, parms_id=out_id):
+            return be.decode(bdec.decrypt(T.Ciphertext(data, parms_id, False))) == want
+
+        exact = decodes(out[0]) and decodes(out[-1])
+        end(path, t0, per_step, out_shape=list(out.shape), n=n_bfv,
+            levels_out=len(bctx.get_context_data(out_id).parms.coeff_modulus),
+            decode_exact=exact)
+        if not exact:
+            raise AssertionError(f"{path} does not decode to v^2 mod t")
+        return bctx, brk, ab, fn, decodes
+
+    bfv_n3, bfv_n1 = (1024, 1024) if rehearsal else (8192, 4096)
+    cfg3 = bfv_path("bfv_mul_relin_chain", bfv_n3,
+                    T.CoeffModulus.create(bfv_n3, [50, 40, 40, 40, 50]),
+                    T.SecLevelType.none, chain=True)
+    cfg1 = bfv_path("bfv_mul_relin", bfv_n1,
+                    T.CoeffModulus.create(bfv_n1, [36, 36, 37]) if rehearsal
+                    else T.CoeffModulus.bfv_default(bfv_n1),
+                    T.SecLevelType.none if rehearsal else T.SecLevelType.tc128, chain=False)
     recorder.remove()
 
     # 4. the kernel calls of the paths against their plain versions ------------
     # Every distinct (function, op, shapes) call, keygen through decode, is
     # replayed both ways and compared exactly; every call of a step is also
-    # timed both ways beside its bound (and galois beside its library call).
+    # timed both ways beside its bound (and galois beside its library call),
+    # and so is every call of scale_round, which runs outside the steps.
     rows = {}
     seen = set()
     for path, phase, kernel, fn, cargs, ckw in recorder.calls:
@@ -473,7 +622,7 @@ def main(argv=None) -> int:
                                          f"differs from its plain version at {tuple(x.shape)}")
             row["checked"].append({"path": path, "phase": phase, "fn": fn.__name__,
                                    "signature": repr(key[2])})
-        if phase != "step":
+        if phase != "step" and kernel != "scale_round":
             continue
         result = fn(*cargs, **ckw)
         nbytes, ops = work(kernel, fn.__name__, cargs, ckw, result)
@@ -532,6 +681,30 @@ def main(argv=None) -> int:
             raise AssertionError(f"batch-2 {name} decodes {err} from its expectation")
         emit({"phase": "batch2", "form": name, "equal_to_plain": True,
               "max_abs_decode_err": err})
+    bctx3, brk3, ab3, chain3, decodes3 = cfg3
+    bctx1, brk1, ab1, mul1, decodes1 = cfg1
+    b3, b1 = ab3[:2].contiguous(), ab1[:2].contiguous()
+    chain3_seq = T.build_bfv_mul_relin_modswitch(bctx3, fused_drop=False, device=device)
+    mul3 = T.build_bfv_mul_relin(bctx3, device=device)
+    sq3 = T.build_bfv_mul_relin(bctx3, square=True, device=device)
+    first3 = bctx3.first_parms_id
+    bfv_checks = (
+        ("bfv_chain_fused_drop", chain3, (b3, b3, brk3), decodes3),
+        ("bfv_chain_per_level_drop", chain3_seq, (b3, b3, brk3), decodes3),
+        ("bfv_multiply_n8192", mul3, (b3, b3, brk3), lambda d: decodes3(d, first3)),
+        ("bfv_square_n8192", sq3, (b3, brk3), lambda d: decodes3(d, first3)),
+        ("bfv_multiply_n4096", mul1, (b1, b1, brk1), decodes1),
+    )
+    for name, fn, fargs, decodes in bfv_checks:
+        got_k = fn(*fargs)
+        with plain_versions():
+            got_p = fn(*fargs)
+        sync()
+        if not torch.equal(got_k, got_p):
+            raise AssertionError(f"batch-2 {name} differs from the plain path")
+        if not decodes(got_k[1]):
+            raise AssertionError(f"batch-2 {name} does not decode to v^2 mod t")
+        emit({"phase": "batch2", "form": name, "equal_to_plain": True, "decode_exact": True})
 
     # 6. steady state at each path's full batch --------------------------------
     timed = {
@@ -543,6 +716,14 @@ def main(argv=None) -> int:
                        lambda: train(av, av, rk, gk1)),
         "rotate_many": ("ckks_rotate_many_n8192_rotations_per_s", rot_batch * len(rot_steps),
                         lambda: rmany(ar, keys_stack)),
+        "bfv_mul_relin_chain": ("bfv_mul_relin_chain_n8192_ops_per_s", batch,
+                                lambda: chain3(ab3, ab3, brk3)),
+        "bfv_mul_relin_n8192": ("bfv_mul_relin_n8192_ops_per_s", batch,
+                                lambda: mul3(ab3, ab3, brk3)),
+        "bfv_square_relin_n8192": ("bfv_square_relin_n8192_ops_per_s", batch,
+                                   lambda: sq3(ab3, brk3)),
+        "bfv_mul_relin": ("bfv_mul_relin_n4096_ops_per_s", batch,
+                          lambda: mul1(ab1, ab1, brk1)),
     }
     if not rehearsal:
         for path, (metric, count, fn) in timed.items():
@@ -559,8 +740,14 @@ def main(argv=None) -> int:
         "ntt": "gemini_seal_tpu/ops/ntt.py:241 ntt_forward_lazy, :322 ntt_inverse_lazy",
         "tensor_product": "gemini_seal_tpu/models/pipelines.py:72 _convolve3, :87 _square3",
         "contract": "gemini_seal_tpu/ops/modops.py:218 accumulate_mulmod_128",
-        "elementwise": "gemini_seal_tpu/ops/keyswitch.py:438 fused_moddown mul_mod/add_mod epilogues",
+        "elementwise": "gemini_seal_tpu/ops/keyswitch.py:438 fused_moddown mul_mod/add_mod "
+                       "epilogues; gemini_seal_tpu/ops/rnsops.py:356 fast_floor, :182 "
+                       "divide_and_round_q_last, :463 divide_and_round_multi",
         "galois": "gemini_seal_tpu/ops/galois.py:123 apply_galois_ntt",
+        "behz": "gemini_seal_tpu/ops/rnsops.py:329 sm_mrq, :369 fastbconv_sk",
+        "scale_round": "gemini_seal_tpu/ops/rnsops.py:256 multiply_add_plain_with_scaling_variant, "
+                       ":287 multiply_sub_plain_with_scaling_variant, :145 "
+                       "decrypt_scale_and_round",
     }
     sources = {k: f"gemini_seal_tpu_torch/csrc/{v[0]}" for k, v in cuda.KERNELS.items()}
     kernels = []
@@ -586,6 +773,8 @@ def main(argv=None) -> int:
             "library_call": ("torch.index_select (one table) / torch.gather (R tables) "
                              "over the last axis") if is_galois else
                             "none: no PyTorch call computes u64 modular arithmetic",
+            "timed_calls": ("encryption and decryption (no step launches it)"
+                            if kernel == "scale_round" else "each path's step"),
             "per_step_by_path": {p: {f: v[f] if f == "bound_ms" or not rehearsal else None
                                      for f in fields}
                                  for p, v in bp.items()},

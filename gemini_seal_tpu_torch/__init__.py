@@ -6,14 +6,15 @@ stage on the card is a hand-written CUDA kernel for Hopper (sm_90a) under
 beside it that runs for CPU tensors.  Entry points take ``device`` (None
 means the card, and raises when none is present).
 
-Ported so far, the CKKS device paths: keygen (secret, public, relin and
-Galois keys), encode, public-key encrypt, multiply + relinearize + rescale
-(fused and sequential), rotate, hoisted multi-rotation, the flagship train
-step (multiply + relinearize + rescale, rotate, add; ``entry()``), decrypt
-and decode.
+Ported so far: keygen (secret, public, relin and Galois keys), public-key
+encrypt and decrypt for BFV and CKKS; the CKKS vector encode and decode,
+multiply + relinearize + rescale (fused and sequential), rotate, hoisted
+multi-rotation and the flagship train step (multiply + relinearize +
+rescale, rotate, add; ``entry()``); the BFV BatchEncoder, the BEHZ
+multiply + relinearize and its mod-switch chain.
 """
 
-from .modulus import CoeffModulus, Modulus, SecLevelType
+from .modulus import CoeffModulus, Modulus, PlainModulus, SecLevelType
 from .params import EncryptionParameters, SchemeType
 from .context import SealContext
 from .ciphertext import Ciphertext, Plaintext
@@ -21,14 +22,16 @@ from .keys import GaloisKeys, KSwitchKeys, PublicKey, RelinKeys, SecretKey
 from .keygenerator import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
-from .encoders import CKKSEncoder
-from .models.pipelines import (build_ckks_mul_relin_rescale, build_ckks_rotate,
+from .encoders import BatchEncoder, CKKSEncoder
+from .models.pipelines import (build_bfv_mul_relin, build_bfv_mul_relin_modswitch,
+                               build_ckks_mul_relin_rescale, build_ckks_rotate,
                                build_ckks_rotate_many, build_ckks_train_step)
 from .entry import entry
 
 __all__ = [
     "CoeffModulus",
     "Modulus",
+    "PlainModulus",
     "SecLevelType",
     "EncryptionParameters",
     "SchemeType",
@@ -43,7 +46,10 @@ __all__ = [
     "KeyGenerator",
     "Encryptor",
     "Decryptor",
+    "BatchEncoder",
     "CKKSEncoder",
+    "build_bfv_mul_relin",
+    "build_bfv_mul_relin_modswitch",
     "build_ckks_mul_relin_rescale",
     "build_ckks_rotate",
     "build_ckks_rotate_many",

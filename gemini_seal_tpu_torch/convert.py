@@ -12,19 +12,21 @@ the port's pipelines:
     gk = galois_keys_from_arrays(ctx, {e: np.stack([pk.data.data for pk in jgk.key(e)])
                                        for e in elts})
     sk = secret_key_from_array(ctx, jkg.secret_key.data)
+    pt = plaintext_from_array(ctx, jpt.data)          # a BFV plaintext
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .ciphertext import Ciphertext
+from .ciphertext import Ciphertext, Plaintext
 from .context import SealContext
 from .keys import GaloisKeys, PublicKey, RelinKeys, SecretKey
 from .ops.backend import to_tensor
+from .params import PARMS_ID_ZERO
 
 __all__ = ["ciphertext_from_arrays", "relin_keys_from_array", "galois_keys_from_arrays",
-           "secret_key_from_array"]
+           "secret_key_from_array", "plaintext_from_array"]
 
 
 def _parms_id(parms_id) -> tuple:
@@ -87,3 +89,13 @@ def secret_key_from_array(context: SealContext, data) -> SecretKey:
     if data.shape != _level_shape(context, pid):
         raise ValueError("secret key data does not match the key level")
     return SecretKey(to_tensor(data, context.device), pid)
+
+
+def plaintext_from_array(context: SealContext, data) -> Plaintext:
+    """u64[count] BFV plaintext coefficients (power basis, count <= N) ->
+    Plaintext with parms_id zero."""
+    data = np.asarray(data, dtype=np.uint64)
+    n = context.first_context_data().parms.poly_modulus_degree
+    if data.ndim != 1 or not 0 < data.shape[0] <= n:
+        raise ValueError(f"plaintext data {data.shape} is not [count <= {n}]")
+    return Plaintext(to_tensor(data, context.device), PARMS_ID_ZERO)

@@ -1,7 +1,7 @@
 // Scalar 64-bit modular arithmetic shared by the port's kernels.
 //
 // Device twins of gemini_seal_tpu/ops/modops.py (mul64_wide, mulhi64,
-// barrett_reduce_128, barrett_reduce_64, mul_mod, mul_mod_shoup_lazy,
+// barrett_reduce_128, divmod_128, barrett_reduce_64, mul_mod, mul_mod_shoup_lazy,
 // add_mod, sub_mod, neg_mod, reduce_once, reduce_twice).  The TPU has no
 // 64-bit multiplier and builds the 128-bit product from u32 halves; here the
 // low word is one 64-bit multiply and the high word is __umul64hi.  Every
@@ -30,6 +30,22 @@ __device__ __forceinline__ u64 barrett_reduce_128(u64 hi, u64 lo, u64 p, u64 r0,
     u64 tmp1c = hi * r1 + tmp3 + carry2;
     u64 result = lo - tmp1c * p;
     return result >= p ? result - p : result;
+}
+
+// floor((hi:lo) / p) when it fits in 64 bits: the Barrett estimate of
+// barrett_reduce_128 plus its one correction (the JAX divmod_128 quotient).
+__device__ __forceinline__ u64 divmod_128_quotient(u64 hi, u64 lo, u64 p, u64 r0, u64 r1) {
+    u64 carry = __umul64hi(lo, r0);
+    u64 t2_lo = lo * r1;
+    u64 t2_hi = __umul64hi(lo, r1);
+    u64 tmp1 = t2_lo + carry;
+    u64 tmp3 = t2_hi + (u64)(tmp1 < t2_lo);
+    t2_lo = hi * r0;
+    t2_hi = __umul64hi(hi, r0);
+    u64 tmp1b = tmp1 + t2_lo;
+    u64 carry2 = t2_hi + (u64)(tmp1b < tmp1);
+    u64 q = hi * r1 + tmp3 + carry2;
+    return q + (u64)(lo - q * p >= p);
 }
 
 __device__ __forceinline__ u64 barrett_reduce_64(u64 x, u64 p, u64 r1) {

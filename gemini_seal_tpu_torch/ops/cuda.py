@@ -52,6 +52,8 @@ KERNELS = {
     "elementwise": ("elementwise.cu", "gst_elementwise", [
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "galois": ("galois.cu", "gst_galois", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "behz": ("behz.cu", "gst_behz", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "scale_round": ("scale_round.cu", "gst_scale_round", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

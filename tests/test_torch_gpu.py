@@ -1,6 +1,8 @@
 """Card tests: each hand-written kernel against its plain PyTorch version on
-the same inputs on the card, bit for bit, and the fused step, the train
-step and the hoisted rotations against the plain path.  They need a CUDA card and skip without one; on a machine with
+the same inputs on the card, bit for bit (the BFV slice's at config 3's
+ring, with the 60-bit Bsk primes and m_tilde = 2^32), and the fused step,
+the train step, the hoisted rotations and the BFV steps against the plain
+path.  They need a CUDA card and skip without one; on a machine with
 an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
@@ -219,3 +221,173 @@ def test_train_step_and_rotate_many_match_plain_path(card):
                                                       True, ct.scale)))
         for i in range(len(vals)):
             assert abs(out[i] - padded[i + s]) < 1e-4
+
+
+# --- the BFV slice: K6 behz, K7 scale_round, K4 submul, and K1-K3 at the
+# --- 60-bit Bsk primes and m_tilde = 2^32, at config 3's row shapes
+
+
+@pytest.fixture(scope="module")
+def bfv3():
+    """BASELINE config 3's ring on the card: N=8192, {50, 40, 40, 40, 50}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 8192
+    parms = T.EncryptionParameters(T.SchemeType.BFV)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [50, 40, 40, 40, 50]))
+    parms.set_plain_modulus(T.PlainModulus.batching(n, 20))
+    parms.set_random_seed(tuple(range(8)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none, device="cuda")
+    return ctx, ctx.first_context_data().device_rns_tool
+
+
+def _bfv_res(rng, moduli, lead, n=8192, mult=1):
+    return to_tensor(np.stack([rng.integers(0, mult * p, size=lead + (n,), dtype=np.uint64)
+                               for p in moduli], axis=len(lead)), "cuda")
+
+
+def test_behz_kernel_sm_mrq(bfv3):
+    from gemini_seal_tpu_torch.ops.rnsops import sm_mrq
+
+    _, tool = bfv3
+    rng = np.random.default_rng(21)
+    x = _bfv_res(rng, tool.host.base_Bsk_m_tilde.values(), (4, 2))   # [4, 2, 6, 8192]
+    got, want = _both(sm_mrq, x, tool)
+    assert got.shape == (4, 2, tool.host.base_Bsk.size, 8192)
+    assert torch.equal(got, want)
+
+
+def test_behz_kernel_sk_tail(bfv3):
+    from gemini_seal_tpu_torch.ops.rnsops import fastbconv_sk
+
+    _, tool = bfv3
+    rng = np.random.default_rng(22)
+    x = _bfv_res(rng, tool.host.base_Bsk.values(), (3, 4))           # [3, 4, 5, 8192]
+    got, want = _both(fastbconv_sk, x, tool)
+    assert got.shape == (3, 4, tool.host.base_q.size, 8192)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["plain_add", "plain_sub"])
+def test_scale_round_kernel_plain(bfv3, mode):
+    from gemini_seal_tpu_torch.ops import rnsops
+
+    ctx, _ = bfv3
+    cd = ctx.first_context_data()
+    t = cd.parms.plain_modulus.value
+    rng = np.random.default_rng(23)
+    c0 = _bfv_res(rng, [m.value for m in cd.parms.coeff_modulus], (3,))
+    m = rng.integers(0, t, size=8192, dtype=np.uint64)
+    m[:3] = [0, t - 1, (t + 1) >> 1]
+    fn = getattr(rnsops, "multiply_%s_plain_with_scaling_variant" % mode.split("_")[1])
+    got, want = _both(fn, c0, to_tensor(m, "cuda"), cd)
+    assert torch.equal(got, want)
+
+
+def test_scale_round_kernel_t_gamma(bfv3):
+    from gemini_seal_tpu_torch.ops.rnsops import decrypt_scale_and_round, scale_round
+
+    _, tool = bfv3
+    rng = np.random.default_rng(24)
+    x = _bfv_res(rng, tool.host.base_q.values(), (4,))
+    got, want = _both(decrypt_scale_and_round, x, tool)
+    assert got.shape == (4, 8192) and torch.equal(got, want)
+    g = tool.host.gamma.value
+    tg = np.stack([rng.integers(0, tool.host.t.value, size=(2, 8192), dtype=np.uint64),
+                   rng.integers(0, g, size=(2, 8192), dtype=np.uint64)], axis=1)
+    neg_g = int(tool.host.neg_inv_q_mod_t_gamma[1])
+    tg[0, 1, :2] = [(g >> 1) * pow(neg_g, -1, g) % g, ((g >> 1) + 1) * pow(neg_g, -1, g) % g]
+    got, want = _both(scale_round, "t_gamma", to_tensor(tg, "cuda"), tool.t_gamma_consts)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b_kind", ["full", "broadcast"])
+def test_elementwise_kernel_submul(bfv3, b_kind):
+    _, tool = bfv3
+    bsk = tool.Bsk_limbs
+    mods = tool.host.base_Bsk.values()
+    rng = np.random.default_rng(25)
+    a = _bfv_res(rng, mods, (3, 4))
+    b = _bfv_res(rng, mods, (3, 4) if b_kind == "full" else ())
+    got, want = _both(rns_elementwise, "submul", a, bsk.p, bsk.ratio0, bsk.ratio1, b=b,
+                      s=tool.inv_prod_q_mod_Bsk)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,mult", [("ntt_forward_lazy", 4), ("ntt_inverse", 2),
+                                       ("ntt_inverse_lazy", 2), ("ntt_forward", 4)])
+def test_ntt_kernel_bsk_primes(bfv3, name, mult):
+    _, tool = bfv3
+    x = _bfv_res(np.random.default_rng(26), tool.host.base_Bsk.values(), (3, 2), mult=mult)
+    got, want = _both(getattr(tn, name), x, tool.base_Bsk_ntt_tables)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_tensor_product_kernel_bsk_lazy(bfv3, square):
+    _, tool = bfv3
+    rng = np.random.default_rng(27)
+    mods = tool.host.base_Bsk.values()
+    a = torch.stack([_bfv_res(rng, mods, (4,), mult=4)] * 2, dim=1)
+    b = None if square else torch.stack([_bfv_res(rng, mods, (4,), mult=4)] * 2, dim=1)
+    got, want = _both(_tensor_product, a, b, tool.Bsk_limbs)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("conv", ["m_tilde_conv", "q_to_Bsk", "sk_conv", "t_gamma_conv"])
+def test_contract_kernel_base_conversions(bfv3, conv):
+    """K3 onto the 60-bit Bsk primes and m_tilde = 2^32 (m_tilde_conv), and
+    from them (sk_conv)."""
+    from gemini_seal_tpu_torch.ops.rnsops import fast_convert_array
+
+    _, tool = bfv3
+    c = getattr(tool, conv)
+    ibase = [int(p) for p in c.ibase.p.reshape(-1).tolist()]
+    x = _bfv_res(np.random.default_rng(28), ibase, (3, 4))
+    got, want = _both(fast_convert_array, x, c)
+    assert torch.equal(got, want)
+
+
+def test_divide_and_round_kernels(bfv3):
+    from gemini_seal_tpu_torch.ops import rnsops
+
+    ctx, tool = bfv3
+    x = _bfv_res(np.random.default_rng(29), tool.host.base_q.values(), (3, 2))
+    got, want = _both(rnsops.divide_and_round_q_last, x, tool)
+    assert torch.equal(got, want)
+    plan = rnsops.MultiDropPlan(ctx, ctx.first_parms_id, 3)
+    got, want = _both(rnsops.divide_and_round_multi, x, plan)
+    assert got.shape == (3, 2, 1, 8192) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chain", [False, True])
+def test_bfv_steps_match_plain_path(card, chain):
+    n = 1024
+    parms = T.EncryptionParameters(T.SchemeType.BFV)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [50, 40, 40, 40, 50]))
+    parms.set_plain_modulus(T.PlainModulus.batching(n, 20))
+    parms.set_random_seed(tuple(range(8)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none)
+    kg = T.KeyGenerator(ctx)
+    be = T.BatchEncoder(ctx)
+    t = parms.plain_modulus.value
+    v = np.random.default_rng(30).integers(0, t, n)
+    ct = T.Encryptor(ctx, kg.public_key()).encrypt(be.encode(v.tolist()))
+    rk = kg.relin_keys().stacked(2)
+    a = torch.stack([ct.data] * 2)
+    dec = T.Decryptor(ctx, kg.secret_key)
+    if chain:
+        forms = [(T.build_bfv_mul_relin_modswitch(ctx, fused_drop=f), ctx.last_parms_id)
+                 for f in (True, False)]
+    else:
+        forms = [(T.build_bfv_mul_relin(ctx), ctx.first_parms_id)]
+    for fn, pid in forms:
+        got, want = _both(fn, a, a, rk)
+        assert torch.equal(got, want)
+        out = be.decode(dec.decrypt(T.Ciphertext(got[1], pid, False)))
+        assert out == (v.astype(object) ** 2 % t).tolist()
+    sq = T.build_bfv_mul_relin(ctx, square=True)
+    got, want = _both(sq, a, rk)
+    assert torch.equal(got, want)

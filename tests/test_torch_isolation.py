@@ -42,6 +42,27 @@ def test_no_jax_or_reference_imports(path):
             assert top not in ("jax", "jaxlib", "gemini_seal_tpu"), (path, name)
 
 
+def _kernel_sources():
+    return sorted(f for f in os.listdir(os.path.join(PKG, "csrc")) if f.endswith(".cu"))
+
+
+@pytest.mark.parametrize("source", _kernel_sources())
+def test_every_kernel_source_is_built_and_documented(source):
+    """Each csrc/*.cu is one registered kernel (ops/cuda.py KERNELS) that
+    exports its C entry point, includes no PyTorch header, and says which
+    JAX function it replaces and what bounds it on the card."""
+    from gemini_seal_tpu_torch.ops import cuda
+
+    names = [k for k, v in cuda.KERNELS.items() if v[0] == source]
+    assert len(names) == 1, (source, names)
+    with open(os.path.join(PKG, "csrc", source)) as fh:
+        text = fh.read()
+    assert f'extern "C" int {cuda.KERNELS[names[0]][1]}(' in text
+    assert "torch/" not in text and "ATen" not in text
+    assert "Replaces" in text and "gemini_seal_tpu/" in text
+    assert "Bound on the H100" in text
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, gemini_seal_tpu_torch, gemini_seal_tpu_torch.convert; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -79,6 +100,28 @@ def test_entry_points_default_to_the_card():
         T.Decryptor(ctx, kg.secret_key)
 
 
+def test_bfv_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    import gemini_seal_tpu_torch as T
+
+    parms = T.EncryptionParameters(T.SchemeType.BFV)
+    parms.set_poly_modulus_degree(256)
+    parms.set_coeff_modulus(T.CoeffModulus.create(256, [40, 40, 40]))
+    parms.set_plain_modulus(T.PlainModulus.batching(256, 20))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.SealContext(parms, sec_level=T.SecLevelType.none)
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none, device="cpu")
+    assert ctx.parameters_set() and ctx.device.type == "cpu"
+    for make in (lambda: T.BatchEncoder(ctx),
+                 lambda: T.build_bfv_mul_relin(ctx),
+                 lambda: T.build_bfv_mul_relin(ctx, square=True),
+                 lambda: T.build_bfv_mul_relin_modswitch(ctx),
+                 lambda: T.build_bfv_mul_relin_modswitch(ctx, fused_drop=False)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
 def test_chip_smoke_cpu_rehearsal():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal"], cwd=REPO,
@@ -87,12 +130,16 @@ def test_chip_smoke_cpu_rehearsal():
     lines = out.stdout.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "rehearsal": "cpu"}
     kernels = json.loads(lines[-2])["kernels"]
-    assert sorted(k["name"] for k in kernels) == ["contract", "elementwise", "galois", "ntt",
-                                                  "tensor_product"]
+    assert sorted(k["name"] for k in kernels) == ["behz", "contract", "elementwise", "galois",
+                                                  "ntt", "scale_round", "tensor_product"]
     forms = [json.loads(l)["form"] for l in lines if '"batch2"' in l]
-    assert forms == ["multiply", "square", "sequential_multiply", "train_step", "rotate_many"]
-    paths = [json.loads(l)["path"] for l in lines if '"main_path"' in l]
-    assert paths == ["mul_relin_rescale", "train_step", "rotate_many"]
+    assert forms == ["multiply", "square", "sequential_multiply", "train_step", "rotate_many",
+                     "bfv_chain_fused_drop", "bfv_chain_per_level_drop", "bfv_multiply_n8192",
+                     "bfv_square_n8192", "bfv_multiply_n4096"]
+    paths = [json.loads(l) for l in lines if '"main_path"' in l]
+    assert [p["path"] for p in paths] == ["mul_relin_rescale", "train_step", "rotate_many",
+                                          "bfv_mul_relin_chain", "bfv_mul_relin"]
+    assert all(p["decode_exact"] for p in paths[3:])
 
 
 def test_chip_smoke_refuses_without_a_card():
