@@ -2,9 +2,9 @@
 """Drive the PyTorch/CUDA port's main paths on one card and check them.
 
     python3 chip_smoke.py                  # on a machine with an H100
-    python3 chip_smoke.py --cpu-rehearsal  # N=1024 on the CPU, plain versions
+    python3 chip_smoke.py --cpu-rehearsal  # small rings on the CPU, plain versions
 
-Five paths run, each driven once with every launch counter set to 0 just
+Ten paths run, each driven once with every launch counter set to 0 just
 before it and read just after it.  Three are CKKS, on bench.py's ring
 (N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
 seed range(71, 79), scale 2^40):
@@ -16,9 +16,10 @@ seed range(71, 79), scale 2^40):
   for step 1, encode of a seeded non-constant vector v, encrypt, batch 128,
   the sequential multiply + relinearize + rescale, rotate by one and add,
   decrypt, decode (within 1e-4 of v_i^2 + v_{i+1}^2);
-- rotate_many (the hoisted rotations): Galois keygen for steps 1..8,
-  encrypt v, batch 16, eight rotations from one mod-up, decrypt, decode
-  (each within 1e-4 of v shifted by its step).
+- rotate_many (the hoisted rotations): Galois keygen for steps 1..8 and
+  their counter-rotated stack, encrypt v, batch 16, eight rotations from
+  one mod-up with each key form, decrypt, decode (each within 1e-4 of v
+  shifted by its step; the two forms within 1e-5 of each other).
 
 Two are BFV, on bench_all.py's rings with seed range(8) and
 t = PlainModulus.batching(N, 20), each with keygen, BatchEncoder encode of
@@ -31,28 +32,48 @@ decrypt and decode (exactly v^2 mod t):
 - bfv_mul_relin (BASELINE config 1): N=4096, CoeffModulus.bfv_default(4096),
   SecLevelType.tc128; the BEHZ multiply + relinearize.
 
+Five are the rest of bench_all.py's BASELINE configs and its N=65536 cell,
+with its rings and seed range(8), nothing cut:
+
+- bfv_rotate_rows (config 2): N=8192, bfv_default(8192), tc128, batch 128;
+  apply_galois on both components (one signed ``galois`` launch), the
+  power-basis switch_key of c1, add (bench_all.py:155-159), by one step;
+  each row of the 2 x N/2 slot matrix decodes rotated by one, exactly;
+- bfv_rotate_many (config 2'): the same ring, batch 16 x steps 1..8 from
+  one mod-up, in both key forms; each step decodes exactly, and the
+  counter-rotated form decodes equal to the default;
+- ckks_mul_relin_rescale_n16384 (config 4): N=16384, [50, 40 x 4, 50],
+  batch 128, the sequential step; decodes within 1e-4 of v^2;
+- ckks_poly_eval_n32768 (config 5): N=32768, [59, 40 x 6, 59], scale
+  2^40, batch 128, p(x) = 1 - x/2 + x^2/4 + x^3/8 + x^4/16 summed over 4
+  adjacent slots ("flat" rotations, coeff_precision_bits 25), on a seeded
+  non-constant v in [-1, 1]: each slot within 1e-3 of sum_{j<4} p(v_{i+j});
+- n65536 (the SEAL cap): N=65536, [50, 40, 40, 50], the forward and
+  inverse NTT of [16, 2, 4, 65536] random residues and the sequential
+  multiply + relinearize + rescale at batch 16; decodes within 1e-4.
+
 The script
 
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
 2. builds the seven kernels (nvcc, one process each, in parallel) and
    prints each one's -Xptxas -v summary;
-3. drives the five paths, recording each kernel call;
-4. holds every distinct recorded kernel call (function, op, shapes)
-   against its plain PyTorch version on the same inputs on the card
-   (bit-exact), and times each call of each path's step both ways with
+3. drives the ten paths; as each kernel call happens it
+4. holds every distinct kernel call (function, mode, shapes) against its
+   plain PyTorch version on the same inputs on the card (bit-exact; the
+   launches of the check are taken off the counters), and times each
+   call of a path's step both ways with
    CUDA events beside the least time the card could take for the same
    work (and, for ``galois``, beside torch.index_select / torch.gather);
    ``scale_round``, which runs in encryption and decryption only, is timed
-   at those calls;
-5. checks batch 2 of the fused multiply and square, the sequential
-   multiply, the train step, the hoisted rotations, the BFV chain (fused
-   and per-level drops), the BFV multiply and square at N=8192 and the BFV
-   multiply at N=4096 bit for bit against the port's plain path on the
-   card, and each one's decode;
-6. times each step at its full batch (ops/s or rotations/s), the
-   sequential CKKS step and the BFV multiply and square at N=8192 alone
-   too, and profiles each (device time by kernel, device busy share), with
-   the recorder removed;
+   at those calls; a kernel's modes (the large-ring NTT, the signed and
+   paired Galois permutations, the broadcast contraction) are rows of
+   their own;
+5. checks batch 2 of every step form against the port's plain path on the
+   card, bit for bit, and each one's decode (with BFV rotate_columns);
+6. times each step at its full batch (ops/s or rotations/s, and the NTT
+   rates of configs 4 and N=65536), the two key forms of each hoisted
+   rotation in turns, and profiles each (device time by kernel, device
+   busy share), with the recorder removed;
 7. prints the kernels line and, last, the result line.
 
 Any mismatch raises and the script exits non-zero; it exits non-zero with
@@ -85,13 +106,21 @@ IMAD_BARRETT64 = 7
 ELEMENTWISE_MULMODS = {"add": 0, "sub": 0, "neg": 0, "mul": 1, "muladd": 1,
                        "addmul": 1, "barrett64": 0, "submul": 1}
 
-# the kernels each path's step must launch
+# the kernels (and kernel modes, "kernel:mode") each path's step must launch
 PATH_KERNELS = {
     "mul_relin_rescale": ("ntt", "tensor_product", "contract", "elementwise"),
     "train_step": ("ntt", "tensor_product", "contract", "elementwise", "galois"),
-    "rotate_many": ("ntt", "contract", "elementwise", "galois"),
+    "rotate_many": ("ntt", "contract", "elementwise", "galois", "contract:broadcast",
+                    "galois:paired"),
     "bfv_mul_relin_chain": ("ntt", "tensor_product", "contract", "elementwise", "behz"),
     "bfv_mul_relin": ("ntt", "tensor_product", "contract", "elementwise", "behz"),
+    "bfv_rotate_rows": ("ntt", "contract", "elementwise", "galois:signed"),
+    "bfv_rotate_many": ("ntt", "contract", "elementwise", "galois", "galois:signed",
+                        "contract:broadcast", "galois:signed_paired"),
+    "ckks_mul_relin_rescale_n16384": ("ntt", "tensor_product", "contract", "elementwise"),
+    "ckks_poly_eval_n32768": ("ntt:large_ring", "tensor_product", "contract",
+                              "elementwise", "galois"),
+    "n65536": ("ntt:large_ring", "tensor_product", "contract", "elementwise"),
 }
 # ... and the kernels each BFV path's encryption and decryption must launch
 PHASE_KERNELS = {"encode_encrypt": ("scale_round",), "decrypt_decode": ("scale_round",)}
@@ -111,14 +140,19 @@ def nvidia_smi_line() -> str:
 
 class Recorder:
     """Wraps every kernel wrapper wherever a module of the port holds it, so
-    one run of a path yields the exact (path, phase, kernel, function, args)
-    of every kernel call, from keygen through decode.  ``remove`` puts the
-    wrappers back, so that later phases time the steps as a user calls
-    them."""
+    that each kernel call of a path, keygen through decode, is handed with
+    its arguments and result to ``check`` (path, phase, label, kernel,
+    function, args, kwargs, result) as it happens: the inputs need not be
+    kept for a later replay, which at config 5's batch would not fit on the
+    card.  The label is the kernel, or "kernel:mode" when the call counted
+    a launch in one of the kernel's modes (cuda.MODES).  The launches that
+    ``check`` makes are taken off the counters again.
+    ``remove`` puts the wrappers back, so that later phases time the steps
+    as a user calls them."""
 
-    def __init__(self):
+    def __init__(self, check):
         from gemini_seal_tpu_torch.models import pipelines
-        from gemini_seal_tpu_torch.ops import galois, modops, ntt, rnsops
+        from gemini_seal_tpu_torch.ops import cuda, galois, modops, ntt, rnsops
 
         kernel_of = {ntt.ntt_forward_lazy: "ntt", ntt.ntt_forward: "ntt",
                      ntt.ntt_inverse_lazy: "ntt", ntt.ntt_inverse: "ntt",
@@ -128,7 +162,8 @@ class Recorder:
                      galois.galois_permute: "galois",
                      rnsops.behz: "behz",
                      rnsops.scale_round: "scale_round"}
-        self.calls = []
+        self.check = check
+        self.launches = cuda.LAUNCHES
         self.path = None
         self.phase = None
         self._patched = []
@@ -149,10 +184,25 @@ class Recorder:
 
     def _wrap(self, kernel, fn):
         def wrapped(*args, **kwargs):
+            before = dict(self.launches)
+            out = fn(*args, **kwargs)
             if self.phase is not None:
-                self.calls.append((self.path, self.phase, kernel, fn, args, kwargs))
-            return fn(*args, **kwargs)
+                counts = dict(self.launches)
+                label = next((k for k in counts if ":" in k and counts[k] > before[k]), kernel)
+                self.check(self.path, self.phase, label, kernel, fn, args, kwargs, out)
+                self.launches.update(counts)
+            return out
         return wrapped
+
+
+def by_label(launches):
+    """Launch counts per kernel label: a kernel's own entry keeps only its
+    calls outside its modes."""
+    out = dict(launches)
+    for key, count in launches.items():
+        if ":" in key:
+            out[key.split(":")[0]] -= count
+    return out
 
 
 def signature(args, kwargs):
@@ -338,18 +388,23 @@ def work(kernel, fn_name, args, kwargs, result):
     return nbytes, ops
 
 
-def library_call(torch, x, tabs):
-    """The one PyTorch call that computes galois_permute(x, tabs): an
+def library_call(torch, x, tabs, moduli=None, paired=False):
+    """The one PyTorch call that computes galois_permute(x, tabs) (its
+    permutation part in the signed modes, which no one call computes): an
     index_select over the last axis for one table, a gather of the
-    broadcast rows for several."""
+    broadcast rows for several, a gather of x's own rows when paired."""
     R, N = tabs.shape
+    idx = tabs & (N - 1)
+    if paired:
+        pidx = idx.reshape(R, 1, N).expand(x.shape)
+        return lambda: torch.gather(x, -1, pidx)
     if R == 1:
-        return lambda: x.index_select(-1, tabs[0])
+        return lambda: x.index_select(-1, idx[0])
     lead, rows = x.shape[:-2], x.shape[-2]
     shape = lead + (R, rows, N)
     src = x.unsqueeze(-3).expand(shape)
-    idx = tabs.reshape(R, 1, N).expand(shape)
-    return lambda: torch.gather(src, -1, idx)
+    gidx = idx.reshape(R, 1, N).expand(shape)
+    return lambda: torch.gather(src, -1, gidx)
 
 
 def steady(torch, fn, count: int):
@@ -385,7 +440,8 @@ def main(argv=None) -> int:
 
     import gemini_seal_tpu_torch as T
     from gemini_seal_tpu_torch.ops import cuda
-    from gemini_seal_tpu_torch.ops.backend import plain_versions
+    from gemini_seal_tpu_torch.ops import ntt as ntt_ops
+    from gemini_seal_tpu_torch.ops.backend import plain_versions, to_tensor
     from gemini_seal_tpu_torch.utils import native
 
     rehearsal = args.cpu_rehearsal
@@ -414,11 +470,79 @@ def main(argv=None) -> int:
               "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                           for k, v in report.items()}})
 
-    # 3. the five paths, each once, with the counters from 0 -------------------
-    recorder = Recorder()
+    # 3. the ten paths, each once, with the counters from 0 ---------------------
+    # (4. checks and times each kernel call as it happens: check_call)
     paths = {}
     phase_launches = {}
     mark = {}
+    rows = {}
+    seen = set()
+
+    def check_call(path, phase, label, kernel, fn, cargs, ckw, result):
+        """4. Every distinct (function, mode, shapes) call, keygen through
+        decode, is run again through its plain version and compared with
+        the kernel's result exactly; every call of a step is also timed both
+        ways beside its bound (and galois beside its library call), and so
+        is every call of scale_round, which runs outside the steps."""
+        sync()
+        row = rows.setdefault(label, {"checked": [], "step_calls": [], "by_path": {},
+                                      "max_abs_err": 0, "tolerance": 0})
+        key = (label, fn.__name__, signature(cargs, ckw))
+        plain_s = None
+        if key not in seen:
+            seen.add(key)
+            t1 = time.perf_counter()
+            with plain_versions():
+                got_p = fn(*cargs, **ckw)
+            sync()
+            plain_s = time.perf_counter() - t1
+            pairs = zip(result, got_p) if isinstance(result, tuple) else [(result, got_p)]
+            for x, y in pairs:
+                # residues are compared exactly (tolerance 0): the u64 bit patterns
+                row["max_abs_err"] = max(row["max_abs_err"], int((x - y).abs().max().item()))
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{label} ({path} {phase}, {fn.__name__}): kernel "
+                                         f"differs from its plain version at {tuple(x.shape)}")
+            del got_p, pairs
+            row["checked"].append({"path": path, "phase": phase, "fn": fn.__name__,
+                                   "signature": repr(key[2])})
+        if phase != "step" and kernel != "scale_round":
+            return
+        nbytes, ops = work(kernel, fn.__name__, cargs, ckw, result)
+        ms = plain_ms = lib_ms = None
+        if kernel == "galois":
+            lib = library_call(torch, *cargs, **ckw)
+            same = lib().reshape(result.shape) == result
+            if (cargs[2] if len(cargs) > 2 else ckw.get("moduli")) is None:
+                ok = bool(same.all())
+            else:  # signed: the permutation part, equal wherever the result is 0
+                ok = bool((same | result.ne(0)).all())
+            del same
+            if not ok:
+                raise AssertionError(f"{label}: the library call differs from the kernel")
+        if not rehearsal:
+            ms = event_ms(torch, lambda: fn(*cargs, **ckw), reps)
+            # a plain version slower than 20 ms is timed over one call
+            plain_reps = 1 if plain_s is None or plain_s > 0.02 else max(2, reps // 4)
+            with plain_versions():
+                plain_ms = event_ms(torch, lambda: fn(*cargs, **ckw), plain_reps)
+            if kernel == "galois":
+                lib_ms = event_ms(torch, lib, reps)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_IMAD_PER_S) * 1e3
+        row["step_calls"].append({"path": path, "fn": fn.__name__, "signature": repr(key[2]),
+                                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                  "bound_ms": bound, "bytes": nbytes, "imads": ops})
+        bp = row["by_path"].setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                              "bound_ms": 0.0, "bytes": 0, "imads": 0})
+        if not rehearsal:
+            bp["ms"] += ms
+            bp["plain_ms"] += plain_ms
+            bp["library_ms"] += lib_ms or 0.0
+        bp["bound_ms"] += bound
+        bp["bytes"] += nbytes
+        bp["imads"] += ops
+
+    recorder = Recorder(check_call)
 
     def set_phase(name):
         """Start phase `name` of the running path (None: the path is over);
@@ -433,17 +557,30 @@ def main(argv=None) -> int:
         recorder.path = path
         cuda.reset_launches()
         phase_launches.clear()
+        if not rehearsal:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
         return time.perf_counter()
 
     def end(path, t0, per_step, **extra):
+        """per_step: the step's launches, or a list of them (one per form
+        of a path that drives two)."""
         set_phase(None)
         sync()
-        paths[path] = {"launches": dict(cuda.LAUNCHES), "launches_per_step": per_step,
-                       "launches_by_phase": dict(phase_launches),
-                       "seconds": time.perf_counter() - t0, **extra}
+        forms = per_step if isinstance(per_step, list) else [per_step]
+        launches = by_label(cuda.LAUNCHES)
+        paths[path] = {"launches": launches,
+                       "launches_per_step": by_label(forms[0]),
+                       "launches_by_phase": {ph: by_label(v) for ph, v in phase_launches.items()},
+                       "seconds_with_checks": time.perf_counter() - t0,
+                       "peak_device_bytes_with_checks": (None if rehearsal
+                                                         else torch.cuda.max_memory_allocated()),
+                       **extra}
+        if len(forms) > 1:
+            paths[path]["launches_per_step_by_form"] = [by_label(f) for f in forms]
         emit({"phase": "main_path", "path": path, **paths[path]})
         missing = [k for k in PATH_KERNELS[path]
-                   if paths[path]["launches"][k] == 0 or per_step[k] == 0]
+                   if launches[k] == 0 or not any(by_label(f)[k] for f in forms)]
         if path.startswith("bfv"):
             missing += [f"{k} ({ph})" for ph, ks in PHASE_KERNELS.items() for k in ks
                         if phase_launches[ph][k] == 0]
@@ -458,6 +595,13 @@ def main(argv=None) -> int:
     def max_err(got, want):
         return max(abs(g - w) for g, w in zip(got, want))
 
+    keygen_s = {}
+
+    def keygen_done(path, t0):
+        keygen_s[path] = time.perf_counter() - t0
+        emit({"phase": "keygen", "path": path, "host_prng": "native g++ build"
+              if native.available() else "pure python", "seconds": keygen_s[path]})
+
     # 3a. mul_relin_rescale: bench.py's fused step (as before this slice)
     t0 = begin("mul_relin_rescale")
     set_phase("keygen")
@@ -470,9 +614,7 @@ def main(argv=None) -> int:
     kg = T.KeyGenerator(ctx, device=device)
     pk = kg.public_key()
     rk = kg.relin_keys().stacked(2)
-    keygen_s = time.perf_counter() - t0
-    emit({"phase": "keygen", "host_prng": "native g++ build" if native.available()
-          else "pure python", "seconds": keygen_s})
+    keygen_done("mul_relin_rescale", t0)
 
     set_phase("encode_encrypt")
     encoder = T.CKKSEncoder(ctx, device=device)
@@ -508,6 +650,7 @@ def main(argv=None) -> int:
     set_phase("keygen")
     elt1 = first_cd.galois_tool.get_elt_from_step(1)
     gk1 = kg.galois_keys([elt1]).stacked(elt1)
+    keygen_done("train_step", t0)
     set_phase("encode_encrypt")
     ct_v = enc.encrypt(encoder.encode(v.tolist(), scale))
     av = ct_v.data.expand((batch,) + tuple(ct_v.data.shape)).contiguous()
@@ -522,45 +665,60 @@ def main(argv=None) -> int:
     if not err < 1e-4:
         raise AssertionError(f"train_step decodes to {err} from v_i^2 + v_(i+1)^2")
 
-    # 3c. rotate_many: hoisted rotations by steps 1..R from one mod-up
+    # 3c. rotate_many: hoisted rotations by steps 1..R from one mod-up, with
+    # the plain and the counter-rotated keys
     t0 = begin("rotate_many")
     set_phase("keygen")
     gks = kg.galois_keys_from_steps(rot_steps)
-    elts = first_cd.galois_tool.get_elts_from_steps(rot_steps)
+    tool = first_cd.galois_tool
+    elts = tool.get_elts_from_steps(rot_steps)
     keys_stack = gks.stacked(*elts)
+    pkeys_stack = T.prepermute_galois_stack(tool, elts, keys_stack)
+    keygen_done("rotate_many", t0)
     set_phase("encode_encrypt")
     ct_r = enc.encrypt(encoder.encode(v.tolist(), scale))
     ar = ct_r.data.expand((rot_batch,) + tuple(ct_r.data.shape)).contiguous()
     set_phase("step")
     rmany = T.build_ckks_rotate_many(ctx, rot_steps, device=device)
+    rmany_pk = T.build_ckks_rotate_many(ctx, rot_steps, prepermuted_keys=True, device=device)
     out, per_step = count_step(rmany, ar, keys_stack)
+    pout, per_step_pk = count_step(rmany_pk, ar, pkeys_stack)
     set_phase("decrypt_decode")
-    err = 0.0
+    err = form_err = 0.0
     for r, s in enumerate(rot_steps):
-        got = encoder.decode(dec.decrypt(T.Ciphertext(out[r, 0], ct_r.parms_id, True,
-                                                      ct_r.scale)))
-        err = max(err, max_err(got, np.roll(v, -s)))
-    end("rotate_many", t0, per_step, out_shape=list(out.shape), max_abs_decode_err=err)
-    if not err < 1e-4:
-        raise AssertionError(f"rotate_many decodes to {err} from the shifted v")
+        got, pgot = (encoder.decode(dec.decrypt(T.Ciphertext(o[r, 0].contiguous(),
+                                                              ct_r.parms_id, True,
+                                                              ct_r.scale)))
+                     for o in (out, pout))
+        err = max(err, max_err(got, np.roll(v, -s)), max_err(pgot, np.roll(v, -s)))
+        form_err = max(form_err, max_err(got, pgot))
+    end("rotate_many", t0, [per_step, per_step_pk], out_shape=list(out.shape),
+        max_abs_decode_err=err, max_abs_decode_diff_between_key_forms=form_err)
+    if not (err < 1e-4 and form_err < 1e-5):
+        raise AssertionError(f"rotate_many decodes to {err} from the shifted v, and the "
+                             f"key forms {form_err} apart")
 
     # 3d-e. the BFV paths (BASELINE configs 3 and 1): each decodes v^2 mod t
-    def bfv_path(path, n_bfv, coeff_modulus, sec_level, chain):
-        t0 = begin(path)
-        set_phase("keygen")
+    def bfv_context(n_bfv, coeff_modulus, sec_level):
         parms = T.EncryptionParameters(T.SchemeType.BFV)
         parms.set_poly_modulus_degree(n_bfv)
         parms.set_coeff_modulus(coeff_modulus)
         parms.set_plain_modulus(T.PlainModulus.batching(n_bfv, 20))
         parms.set_random_seed(tuple(range(8)))
-        bctx = T.SealContext(parms, sec_level=sec_level, device=device)
+        return T.SealContext(parms, sec_level=sec_level, device=device)
+
+    def bfv_path(path, n_bfv, coeff_modulus, sec_level, chain):
+        t0 = begin(path)
+        set_phase("keygen")
+        bctx = bfv_context(n_bfv, coeff_modulus, sec_level)
         bkg = T.KeyGenerator(bctx, device=device)
         brk = bkg.relin_keys().stacked(2)
+        keygen_done(path, t0)
         set_phase("encode_encrypt")
         be = T.BatchEncoder(bctx, device=device)
         benc = T.Encryptor(bctx, bkg.public_key(), device=device)
         bdec = T.Decryptor(bctx, bkg.secret_key, device=device)
-        t = parms.plain_modulus.value
+        t = bctx.first_context_data().parms.plain_modulus.value
         vb = np.random.default_rng(2025).integers(0, t, n_bfv)
         bct = benc.encrypt(be.encode(vb.tolist()))
         ab = bct.data.expand((batch,) + tuple(bct.data.shape)).contiguous()
@@ -594,65 +752,194 @@ def main(argv=None) -> int:
                     T.CoeffModulus.create(bfv_n1, [36, 36, 37]) if rehearsal
                     else T.CoeffModulus.bfv_default(bfv_n1),
                     T.SecLevelType.none if rehearsal else T.SecLevelType.tc128, chain=False)
-    recorder.remove()
 
-    # 4. the kernel calls of the paths against their plain versions ------------
-    # Every distinct (function, op, shapes) call, keygen through decode, is
-    # replayed both ways and compared exactly; every call of a step is also
-    # timed both ways beside its bound (and galois beside its library call),
-    # and so is every call of scale_round, which runs outside the steps.
-    rows = {}
-    seen = set()
-    for path, phase, kernel, fn, cargs, ckw in recorder.calls:
-        row = rows.setdefault(kernel, {"checked": [], "step_calls": [], "by_path": {},
-                                       "max_abs_err": 0, "tolerance": 0})
-        key = (kernel, fn.__name__, signature(cargs, ckw))
-        if key not in seen:
-            seen.add(key)
-            got_k = fn(*cargs, **ckw)
-            with plain_versions():
-                got_p = fn(*cargs, **ckw)
-            sync()
-            pairs = zip(got_k, got_p) if isinstance(got_k, tuple) else [(got_k, got_p)]
-            for x, y in pairs:
-                # residues are compared exactly (tolerance 0): the u64 bit patterns
-                row["max_abs_err"] = max(row["max_abs_err"], int((x - y).abs().max().item()))
-                if not torch.equal(x, y):
-                    raise AssertionError(f"{kernel} ({path} {phase}, {fn.__name__}): kernel "
-                                         f"differs from its plain version at {tuple(x.shape)}")
-            row["checked"].append({"path": path, "phase": phase, "fn": fn.__name__,
-                                   "signature": repr(key[2])})
-        if phase != "step" and kernel != "scale_round":
-            continue
-        result = fn(*cargs, **ckw)
-        nbytes, ops = work(kernel, fn.__name__, cargs, ckw, result)
-        ms = plain_ms = lib_ms = None
-        if kernel == "galois":
-            lib = library_call(torch, *cargs)
-            if not torch.equal(lib().reshape(result.shape), result):
-                raise AssertionError("galois: the library call differs from the kernel")
-        if not rehearsal:
-            ms = event_ms(torch, lambda: fn(*cargs, **ckw), reps)
-            with plain_versions():
-                plain_ms = event_ms(torch, lambda: fn(*cargs, **ckw), max(2, reps // 4))
-            if kernel == "galois":
-                lib_ms = event_ms(torch, lib, reps)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_IMAD_PER_S) * 1e3
-        row["step_calls"].append({"path": path, "fn": fn.__name__, "signature": repr(key[2]),
-                                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                  "bound_ms": bound, "bytes": nbytes, "imads": ops})
-        bp = row["by_path"].setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                              "bound_ms": 0.0, "bytes": 0, "imads": 0})
-        if not rehearsal:
-            bp["ms"] += ms
-            bp["plain_ms"] += plain_ms
-            bp["library_ms"] += lib_ms or 0.0
-        bp["bound_ms"] += bound
-        bp["bytes"] += nbytes
-        bp["imads"] += ops
+    # 3f. bfv_rotate_rows (BASELINE config 2): bench_all.py's composition
+    from gemini_seal_tpu_torch.ops.dyadic import add_poly
+    from gemini_seal_tpu_torch.ops.keyswitch import KeySwitchPlan, switch_key
+
+    n2 = 1024 if rehearsal else 8192
+    t0 = begin("bfv_rotate_rows")
+    set_phase("keygen")
+    ctx2 = bfv_context(n2, T.CoeffModulus.create(n2, [30, 30, 30]) if rehearsal
+                       else T.CoeffModulus.bfv_default(n2),
+                       T.SecLevelType.none if rehearsal else T.SecLevelType.tc128)
+    kg2 = T.KeyGenerator(ctx2, device=device)
+    cd2 = ctx2.first_context_data()
+    tool2, limbs2 = cd2.galois_tool, cd2.limb_constants
+    elt_r, elt_c = tool2.get_elt_from_step(1), 2 * n2 - 1
+    gk2 = kg2.galois_keys([elt_r, elt_c])
+    key_r, key_c = gk2.stacked(elt_r), gk2.stacked(elt_c)
+    keygen_done("bfv_rotate_rows", t0)
+    set_phase("encode_encrypt")
+    be2 = T.BatchEncoder(ctx2, device=device)
+    enc2 = T.Encryptor(ctx2, kg2.public_key(), device=device)
+    dec2 = T.Decryptor(ctx2, kg2.secret_key, device=device)
+    t2 = cd2.parms.plain_modulus.value
+    v2 = np.random.default_rng(2026).integers(0, t2, n2)
+    ct2 = enc2.encrypt(be2.encode(v2.tolist()))
+    a2b = ct2.data.expand((batch,) + tuple(ct2.data.shape)).contiguous()
+    set_phase("step")
+    plan2 = KeySwitchPlan(ctx2, cd2.parms_id)
+    tool2.coeff_tables([elt_r])
+    tool2.coeff_tables([elt_c])
+
+    def bfv_rotate(elt):
+        def rotate(x, key):
+            rot = tool2.apply_galois(x, elt, limbs2)                  # both components
+            d0, d1 = switch_key(rot[..., 1, :, :], key, plan2, False)
+            return torch.stack([add_poly(rot[..., 0, :, :].contiguous(), d0, limbs2), d1],
+                               dim=-3)
+        return rotate
+
+    rot_rows, rot_cols = bfv_rotate(elt_r), bfv_rotate(elt_c)
+    out, per_step = count_step(rot_rows, a2b, key_r)
+    set_phase("decrypt_decode")
+    half = n2 // 2
+
+    def rows_rotated(s):
+        return np.concatenate([np.roll(v2[:half], -s), np.roll(v2[half:], -s)]).tolist()
+
+    def decodes2(data):
+        return be2.decode(dec2.decrypt(T.Ciphertext(data.contiguous(), cd2.parms_id, False)))
+
+    exact = decodes2(out[0]) == rows_rotated(1) and decodes2(out[-1]) == rows_rotated(1)
+    end("bfv_rotate_rows", t0, per_step, out_shape=list(out.shape), decode_exact=exact)
+    if not exact:
+        raise AssertionError("bfv_rotate_rows does not decode to the rows rotated by one")
+
+    # 3g. bfv_rotate_many (config 2'): steps 1..8 from one mod-up, both key forms
+    hsteps = list(range(1, 3 if rehearsal else 9))
+    t0 = begin("bfv_rotate_many")
+    set_phase("keygen")
+    helts = tool2.get_elts_from_steps(hsteps)
+    hstack = kg2.galois_keys(helts).stacked(*helts)
+    phstack = T.prepermute_galois_stack(tool2, helts, hstack)
+    keygen_done("bfv_rotate_many", t0)
+    set_phase("encode_encrypt")
+    ct2h = enc2.encrypt(be2.encode(v2.tolist()))
+    a2h = ct2h.data.expand((rot_batch,) + tuple(ct2h.data.shape)).contiguous()
+    set_phase("step")
+    bmany = T.build_bfv_rotate_many(ctx2, hsteps, device=device)
+    bmany_pk = T.build_bfv_rotate_many(ctx2, hsteps, prepermuted_keys=True, device=device)
+    out, per_step = count_step(bmany, a2h, hstack)
+    pout, per_step_pk = count_step(bmany_pk, a2h, phstack)
+    set_phase("decrypt_decode")
+    exact = all(decodes2(o[r, b]) == rows_rotated(s) for o in (out, pout)
+                for r, s in enumerate(hsteps) for b in (0, rot_batch - 1))
+    end("bfv_rotate_many", t0, [per_step, per_step_pk], out_shape=list(out.shape),
+        decode_exact=exact, key_forms_decode_equal=exact)
+    if not exact:
+        raise AssertionError("bfv_rotate_many does not decode to the rotated rows")
+
+    def ckks_context(n_c, bits):
+        parms = T.EncryptionParameters(T.SchemeType.CKKS)
+        parms.set_poly_modulus_degree(n_c)
+        parms.set_coeff_modulus(T.CoeffModulus.create(n_c, bits))
+        parms.set_random_seed(tuple(range(8)))
+        c = T.SealContext(parms, sec_level=T.SecLevelType.none, device=device)
+        k = T.KeyGenerator(c, device=device)
+        return (c, k, T.CKKSEncoder(c, device=device), T.Encryptor(c, k.public_key(), device=device),
+                T.Decryptor(c, k.secret_key, device=device))
+
+    # 3h. ckks_mul_relin_rescale_n16384 (BASELINE config 4): the sequential step
+    n4 = 1024 if rehearsal else 16384
+    t0 = begin("ckks_mul_relin_rescale_n16384")
+    set_phase("keygen")
+    ctx4, kg4, encoder4, enc4, dec4 = ckks_context(
+        n4, [40, 30, 40] if rehearsal else [50, 40, 40, 40, 40, 50])
+    rk4 = kg4.relin_keys().stacked(2)
+    keygen_done("ckks_mul_relin_rescale_n16384", t0)
+    set_phase("encode_encrypt")
+    scale4 = 2.0 ** 30 if rehearsal else 2.0 ** 40
+    v4 = np.random.default_rng(2027).uniform(-1.0, 1.0, n4 // 2)
+    ct4 = enc4.encrypt(encoder4.encode(v4.tolist(), scale4))
+    a4 = ct4.data.expand((batch,) + tuple(ct4.data.shape)).contiguous()
+    set_phase("step")
+    step4 = T.build_ckks_mul_relin_rescale(ctx4, device=device)
+    out, per_step = count_step(step4, a4, a4, rk4)
+    set_phase("decrypt_decode")
+    cd4 = ctx4.first_context_data()
+    scale4_out = scale4 * scale4 / cd4.parms.coeff_modulus[-1].value
+    err = max(max_err(encoder4.decode(dec4.decrypt(T.Ciphertext(
+        out[b], cd4.next_context_data.parms_id, True, scale4_out))), v4 * v4)
+        for b in (0, batch - 1))
+    end("ckks_mul_relin_rescale_n16384", t0, per_step, out_shape=list(out.shape),
+        max_abs_decode_err=err)
+    if not err < 1e-4:
+        raise AssertionError(f"ckks_mul_relin_rescale_n16384 decodes to {err} from v^2")
+    ntt4 = a4.contiguous()
+
+    # 3i. ckks_poly_eval_n32768 (BASELINE config 5): the deep polynomial
+    n5 = 1024 if rehearsal else 32768
+    coeffs5 = [1.0, -0.5, 0.25, 0.125, 0.0625]
+    t0 = begin("ckks_poly_eval_n32768")
+    set_phase("keygen")
+    ctx5, kg5, encoder5, enc5, dec5 = ckks_context(
+        n5, [59, 30, 30, 30, 59] if rehearsal else [59] + [40] * 6 + [59])
+    rk5 = kg5.relin_keys().stacked(2)
+    elts5 = ctx5.first_context_data().galois_tool.get_elts_from_steps([1, 2, 3])
+    gk5 = kg5.galois_keys(elts5).stacked(*elts5)
+    keygen_done("ckks_poly_eval_n32768", t0)
+    set_phase("encode_encrypt")
+    scale5 = 2.0 ** 30 if rehearsal else 2.0 ** 40
+    v5 = np.random.default_rng(2028).uniform(-1.0, 1.0, n5 // 2)
+    ct5 = enc5.encrypt(encoder5.encode(v5.tolist(), scale5))
+    a5 = ct5.data.expand((batch,) + tuple(ct5.data.shape)).contiguous()
+    set_phase("step")
+    step5, deep5, out_scale5 = T.build_ckks_poly_eval(
+        ctx5, coeffs5, scale5, encoder5, rotate_sum_log2=2, coeff_precision_bits=25,
+        composed=True, rotate_mode="flat", device=device)
+    out, per_step = count_step(step5, a5, rk5, gk5)
+    set_phase("decrypt_decode")
+
+    def p5(x):
+        return sum(c * x ** k for k, c in enumerate(coeffs5))
+
+    want5 = sum(p5(np.roll(v5, -j)) for j in range(4))
+    err = max(max_err(encoder5.decode(dec5.decrypt(T.Ciphertext(out[b], deep5, True,
+                                                                 out_scale5))), want5)
+              for b in (0, batch - 1))
+    end("ckks_poly_eval_n32768", t0, per_step, out_shape=list(out.shape),
+        max_abs_decode_err=err)
+    if not err < 1e-3:
+        raise AssertionError(f"ckks_poly_eval_n32768 decodes {err} from sum p(v_(i+j))")
+
+    # 3j. n65536: SEAL's cap; the NTT both ways, then the sequential step
+    n6 = 2048 if rehearsal else 65536
+    b6 = 2 if rehearsal else 16
+    t0 = begin("n65536")
+    set_phase("keygen")
+    ctx6, kg6, encoder6, enc6, dec6 = ckks_context(n6, [50, 40, 40, 50])
+    rk6 = kg6.relin_keys().stacked(2)
+    keygen_done("n65536", t0)
+    set_phase("ntt")
+    cd6 = ctx6.first_context_data()
+    rng6 = np.random.default_rng(9)
+    x6 = to_tensor(np.stack([rng6.integers(0, m.value, (b6, 2, n6), dtype=np.uint64)
+                             for m in cd6.parms.coeff_modulus], axis=2), device)
+    f6 = ntt_ops.ntt_forward(x6, cd6.ntt_tables)
+    i6 = ntt_ops.ntt_inverse(f6, cd6.ntt_tables)
+    ntt_round_trip = bool(torch.equal(i6, x6))
+    set_phase("encode_encrypt")
+    vals6 = [0.5, -1.25, 2.0]
+    ct6 = enc6.encrypt(encoder6.encode(vals6, 2.0 ** 40))
+    a6 = ct6.data.expand((b6,) + tuple(ct6.data.shape)).contiguous()
+    set_phase("step")
+    step6 = T.build_ckks_mul_relin_rescale(ctx6, device=device)
+    out, per_step = count_step(step6, a6, a6, rk6)
+    set_phase("decrypt_decode")
+    scale6 = 2.0 ** 80 / cd6.parms.coeff_modulus[-1].value
+    want6 = [x * x for x in vals6] + [0.0] * (n6 // 2 - len(vals6))
+    err = max(max_err(encoder6.decode(dec6.decrypt(T.Ciphertext(
+        out[b], cd6.next_context_data.parms_id, True, scale6))), want6) for b in (0, b6 - 1))
+    end("n65536", t0, per_step, out_shape=list(out.shape), max_abs_decode_err=err,
+        ntt_round_trip_exact=ntt_round_trip)
+    if not (err < 1e-4 and ntt_round_trip):
+        raise AssertionError(f"n65536 decodes {err} from v^2 (NTT round trip "
+                             f"exact: {ntt_round_trip})")
+    recorder.remove()
     for kernel, row in rows.items():
         emit({"phase": "kernel_check", "kernel": kernel, "equal": True, **row})
-    recorder.calls.clear()
 
     # 5. batch 2 of each step against the plain path on the card -----------------
     seq = T.build_ckks_mul_relin_rescale(ctx, device=device)
@@ -660,7 +947,8 @@ def main(argv=None) -> int:
     checks = (("multiply", step, (a2, a2, rk)), ("square", square, (a2, rk)),
               ("sequential_multiply", seq, (av2, av2, rk)),
               ("train_step", train, (av2, av2, rk, gk1)),
-              ("rotate_many", rmany, (ar2, keys_stack)))
+              ("rotate_many", rmany, (ar2, keys_stack)),
+              ("rotate_many_prepermuted", rmany_pk, (ar2, pkeys_stack)))
     for name, fn, fargs in checks:
         got_k = fn(*fargs)
         with plain_versions():
@@ -668,7 +956,7 @@ def main(argv=None) -> int:
         sync()
         if not torch.equal(got_k, got_p):
             raise AssertionError(f"batch-2 {name} differs from the plain path")
-        if name == "rotate_many":
+        if name.startswith("rotate_many"):
             pt = dec.decrypt(T.Ciphertext(got_k[-1, 1].contiguous(), ct_r.parms_id, True,
                                           ct_r.scale))
             err = max_err(encoder.decode(pt), np.roll(v, -rot_steps[-1]))
@@ -688,12 +976,20 @@ def main(argv=None) -> int:
     mul3 = T.build_bfv_mul_relin(bctx3, device=device)
     sq3 = T.build_bfv_mul_relin(bctx3, square=True, device=device)
     first3 = bctx3.first_parms_id
+    swapped = np.concatenate([v2[half:], v2[:half]]).tolist()
+    b2r, b2h = a2b[:2].contiguous(), a2h[:2].contiguous()
     bfv_checks = (
         ("bfv_chain_fused_drop", chain3, (b3, b3, brk3), decodes3),
         ("bfv_chain_per_level_drop", chain3_seq, (b3, b3, brk3), decodes3),
         ("bfv_multiply_n8192", mul3, (b3, b3, brk3), lambda d: decodes3(d, first3)),
         ("bfv_square_n8192", sq3, (b3, brk3), lambda d: decodes3(d, first3)),
         ("bfv_multiply_n4096", mul1, (b1, b1, brk1), decodes1),
+        ("bfv_rotate_rows", rot_rows, (b2r, key_r), lambda d: decodes2(d) == rows_rotated(1)),
+        ("bfv_rotate_columns", rot_cols, (b2r, key_c), lambda d: decodes2(d) == swapped),
+        ("bfv_rotate_many", bmany, (b2h, hstack),
+         lambda d: decodes2(d[-1]) == rows_rotated(hsteps[-1])),
+        ("bfv_rotate_many_prepermuted", bmany_pk, (b2h, phstack),
+         lambda d: decodes2(d[-1]) == rows_rotated(hsteps[-1])),
     )
     for name, fn, fargs, decodes in bfv_checks:
         got_k = fn(*fargs)
@@ -702,79 +998,195 @@ def main(argv=None) -> int:
         sync()
         if not torch.equal(got_k, got_p):
             raise AssertionError(f"batch-2 {name} differs from the plain path")
-        if not decodes(got_k[1]):
-            raise AssertionError(f"batch-2 {name} does not decode to v^2 mod t")
+        if not decodes(got_k[1] if got_k.dim() == 4 else got_k[:, 1]):
+            raise AssertionError(f"batch-2 {name} does not decode to its expectation")
         emit({"phase": "batch2", "form": name, "equal_to_plain": True, "decode_exact": True})
+    large_checks = (
+        ("ckks_mul_relin_rescale_n16384", step4, (a4[:2].contiguous(),) * 2 + (rk4,),
+         lambda d: max_err(encoder4.decode(dec4.decrypt(T.Ciphertext(
+             d, cd4.next_context_data.parms_id, True, scale4_out))), v4 * v4), 1e-4),
+        ("ckks_poly_eval_n32768", step5, (a5[:2].contiguous(), rk5, gk5),
+         lambda d: max_err(encoder5.decode(dec5.decrypt(T.Ciphertext(
+             d, deep5, True, out_scale5))), want5), 1e-3),
+        ("n65536", step6, (a6[:2].contiguous(),) * 2 + (rk6,),
+         lambda d: max_err(encoder6.decode(dec6.decrypt(T.Ciphertext(
+             d, cd6.next_context_data.parms_id, True, scale6))), want6), 1e-4),
+    )
+    for name, fn, fargs, decode_err, tol in large_checks:
+        got_k = fn(*fargs)
+        with plain_versions():
+            got_p = fn(*fargs)
+        sync()
+        if not torch.equal(got_k, got_p):
+            raise AssertionError(f"batch-2 {name} differs from the plain path")
+        err = decode_err(got_k[1])
+        if not err < tol:
+            raise AssertionError(f"batch-2 {name} decodes {err} from its expectation")
+        emit({"phase": "batch2", "form": name, "equal_to_plain": True,
+              "max_abs_decode_err": err})
+        del got_k, got_p
+
+    # the power-basis limb drop of config 3's per-level chain at batch 128,
+    # timed as a function (its four launches together) beside its bound
+    from gemini_seal_tpu_torch.ops import rnsops
+
+    drop_in = mul3(ab3, ab3, brk3)
+    tool3 = bctx3.first_context_data().device_rns_tool
+    drop_out, drop_launches = count_step(rnsops.divide_and_round_q_last, drop_in, tool3)
+    drop_bytes = bytes_once([drop_in]) + bytes_once([drop_out])
+    drop_ops = (drop_out.numel() * (IMAD_MAC + IMAD_BARRETT128 + IMAD_MULMOD)
+                + drop_out.numel() // drop_out.shape[-2] * IMAD_BARRETT64)
+    drop = {"phase": "function", "function": "divide_and_round_q_last",
+            "input_shape": list(drop_in.shape),
+            "launches": {k: c for k, c in by_label(drop_launches).items() if c},
+            "bytes": drop_bytes, "imads": drop_ops,
+            "bound_ms": max(drop_bytes / HBM_BYTES_PER_S, drop_ops / INT32_IMAD_PER_S) * 1e3,
+            "bound_by": "operations" if drop_ops / INT32_IMAD_PER_S
+                        > drop_bytes / HBM_BYTES_PER_S else "bytes", "card": card}
+    with plain_versions():
+        if not torch.equal(rnsops.divide_and_round_q_last(drop_in, tool3), drop_out):
+            raise AssertionError("divide_and_round_q_last differs from its plain version")
+    if not rehearsal:
+        drop["ms"] = event_ms(torch, lambda: rnsops.divide_and_round_q_last(drop_in, tool3),
+                              reps)
+        with plain_versions():
+            drop["plain_ms"] = event_ms(
+                torch, lambda: rnsops.divide_and_round_q_last(drop_in, tool3), 2)
+    emit(drop)
+    del drop_in, drop_out
 
     # 6. steady state at each path's full batch --------------------------------
-    timed = {
-        "mul_relin_rescale": ("ckks_mul_relin_rescale_n8192_ops_per_s", batch,
-                              lambda: step(a, a, rk)),
-        "mul_relin_rescale_sequential": ("ckks_mul_relin_rescale_sequential_n8192_ops_per_s",
-                                         batch, lambda: seq(a, a, rk)),
-        "train_step": ("ckks_train_step_n8192_ops_per_s", batch,
-                       lambda: train(av, av, rk, gk1)),
-        "rotate_many": ("ckks_rotate_many_n8192_rotations_per_s", rot_batch * len(rot_steps),
-                        lambda: rmany(ar, keys_stack)),
-        "bfv_mul_relin_chain": ("bfv_mul_relin_chain_n8192_ops_per_s", batch,
-                                lambda: chain3(ab3, ab3, brk3)),
-        "bfv_mul_relin_n8192": ("bfv_mul_relin_n8192_ops_per_s", batch,
-                                lambda: mul3(ab3, ab3, brk3)),
-        "bfv_square_relin_n8192": ("bfv_square_relin_n8192_ops_per_s", batch,
-                                   lambda: sq3(ab3, brk3)),
-        "bfv_mul_relin": ("bfv_mul_relin_n4096_ops_per_s", batch,
-                          lambda: mul1(ab1, ab1, brk1)),
-    }
+    # (path, metric, count per call, call, batch); a pair in one tuple is
+    # timed in turns: A, B, A, B
+    tables4, tables6 = cd4.ntt_tables, cd6.ntt_tables
+    timed = [
+        ("mul_relin_rescale", "ckks_mul_relin_rescale_n8192_ops_per_s", batch,
+         lambda: step(a, a, rk), batch),
+        ("mul_relin_rescale_sequential", "ckks_mul_relin_rescale_sequential_n8192_ops_per_s",
+         batch, lambda: seq(a, a, rk), batch),
+        ("train_step", "ckks_train_step_n8192_ops_per_s", batch,
+         lambda: train(av, av, rk, gk1), batch),
+        (("rotate_many", "ckks_rotate_many_n8192_rotations_per_s",
+          rot_batch * len(rot_steps), lambda: rmany(ar, keys_stack), rot_batch),
+         ("rotate_many_prepermuted", "ckks_rotate_many_prepermuted_n8192_rotations_per_s",
+          rot_batch * len(rot_steps), lambda: rmany_pk(ar, pkeys_stack), rot_batch)),
+        ("bfv_mul_relin_chain", "bfv_mul_relin_chain_n8192_ops_per_s", batch,
+         lambda: chain3(ab3, ab3, brk3), batch),
+        ("bfv_mul_relin_n8192", "bfv_mul_relin_n8192_ops_per_s", batch,
+         lambda: mul3(ab3, ab3, brk3), batch),
+        ("bfv_square_relin_n8192", "bfv_square_relin_n8192_ops_per_s", batch,
+         lambda: sq3(ab3, brk3), batch),
+        ("bfv_mul_relin", "bfv_mul_relin_n4096_ops_per_s", batch,
+         lambda: mul1(ab1, ab1, brk1), batch),
+        ("bfv_rotate_rows", "bfv_rotate_rows_n8192_ops_per_s", batch,
+         lambda: rot_rows(a2b, key_r), batch),
+        (("bfv_rotate_many", "bfv_rotate_rows_hoisted8_n8192_rot_per_s",
+          rot_batch * len(hsteps), lambda: bmany(a2h, hstack), rot_batch),
+         ("bfv_rotate_many_prepermuted", "bfv_rotate_rows_hoisted8_prepermuted_n8192_rot_per_s",
+          rot_batch * len(hsteps), lambda: bmany_pk(a2h, phstack), rot_batch)),
+        ("ckks_mul_relin_rescale_n16384", "ckks_mul_relin_rescale_n16384_ops_per_s", batch,
+         lambda: step4(a4, a4, rk4), batch),
+        ("ntt_n16384", "ntt_n16384_per_s", ntt4.numel() // n4,
+         lambda: ntt_ops.ntt_forward(ntt4, tables4), batch),
+        ("ckks_poly_eval_n32768", "ckks_deep_poly4_rot_n32768_ops_per_s", batch,
+         lambda: step5(a5, rk5, gk5), batch),
+        ("ntt_fwd_n65536", "ntt_fwd_n65536_rows_per_s", x6.numel() // n6,
+         lambda: ntt_ops.ntt_forward(x6, tables6), b6),
+        ("ntt_inv_n65536", "ntt_inv_n65536_rows_per_s", x6.numel() // n6,
+         lambda: ntt_ops.ntt_inverse(x6, tables6), b6),
+        ("n65536", "ckks_mul_relin_rescale_n65536_ops_per_s", b6,
+         lambda: step6(a6, a6, rk6), b6),
+    ]
+    keygen_of = {"mul_relin_rescale_sequential": "mul_relin_rescale",
+                 "bfv_mul_relin_n8192": "bfv_mul_relin_chain",
+                 "bfv_square_relin_n8192": "bfv_mul_relin_chain",
+                 "rotate_many_prepermuted": "rotate_many",
+                 "bfv_rotate_many_prepermuted": "bfv_rotate_many",
+                 "ntt_n16384": "ckks_mul_relin_rescale_n16384",
+                 "ntt_fwd_n65536": "n65536", "ntt_inv_n65536": "n65536"}
     if not rehearsal:
-        for path, (metric, count, fn) in timed.items():
-            rate, iters, dt = steady(torch, fn, count)
-            emit({"phase": "steady_state", "path": path, "metric": metric, "value": rate,
-                  "batch": batch if path != "rotate_many" else rot_batch,
-                  "rotations": len(rot_steps) if path == "rotate_many" else None,
-                  "iters": iters, "seconds": dt, "card": card})
-            emit({"phase": "profile", "path": path,
-                  **profile_steps(torch, fn, 10, dt * 1e3 / iters)})
+        for entry in timed:
+            turns = [(entry, 1)] if isinstance(entry[0], str) else [
+                (entry[0], 1), (entry[1], 1), (entry[0], 2), (entry[1], 2)]
+            for (path, metric, count, fn, b), turn in turns:
+                torch.cuda.reset_peak_memory_stats()
+                rate, iters, dt = steady(torch, fn, count)
+                peak = torch.cuda.max_memory_allocated()
+                prof = profile_steps(torch, fn, 10, dt * 1e3 / iters)
+                emit({"phase": "steady_state", "path": path, "metric": metric, "value": rate,
+                      "batch": b, "turn": turn, "iters": iters, "seconds": dt,
+                      "device_ms_per_step": prof["device_ms_per_step"],
+                      "device_busy_share": prof["device_busy_share"],
+                      "keygen_seconds": keygen_s[keygen_of.get(path, path)],
+                      "peak_device_bytes": peak, "card": card})
+                emit({"phase": "profile", "path": path, "turn": turn, **prof})
+        emit({"phase": "memory", "peak_device_bytes_with_checks_by_path":
+              {p: v["peak_device_bytes_with_checks"] for p, v in paths.items()}, "card": card})
 
     # 7. kernels line and result line -----------------------------------------------
     replaces = {
         "ntt": "gemini_seal_tpu/ops/ntt.py:241 ntt_forward_lazy, :322 ntt_inverse_lazy",
+        "ntt:large_ring": "gemini_seal_tpu/ops/ntt.py:241 ntt_forward_lazy, :322 "
+                          "ntt_inverse_lazy at N = 32768, 65536",
         "tensor_product": "gemini_seal_tpu/models/pipelines.py:72 _convolve3, :87 _square3",
         "contract": "gemini_seal_tpu/ops/modops.py:218 accumulate_mulmod_128",
+        "contract:broadcast": "gemini_seal_tpu/models/pipelines.py:318 "
+                              "_shared_digit_inner_product",
         "elementwise": "gemini_seal_tpu/ops/keyswitch.py:438 fused_moddown mul_mod/add_mod "
                        "epilogues; gemini_seal_tpu/ops/rnsops.py:356 fast_floor, :182 "
                        "divide_and_round_q_last, :463 divide_and_round_multi",
         "galois": "gemini_seal_tpu/ops/galois.py:123 apply_galois_ntt",
+        "galois:signed": "gemini_seal_tpu/ops/galois.py:115 apply_galois; "
+                         "gemini_seal_tpu/models/pipelines.py:403 build_bfv_rotate_many's "
+                         "signed gather of c0",
+        "galois:paired": "gemini_seal_tpu/models/pipelines.py:483 build_ckks_rotate_many's "
+                         "take_along_axis (counter-rotated keys), :291 "
+                         "prepermute_galois_stack",
+        "galois:signed_paired": "gemini_seal_tpu/models/pipelines.py:389 "
+                                "build_bfv_rotate_many's take_along_axis and sign flip "
+                                "(counter-rotated keys)",
         "behz": "gemini_seal_tpu/ops/rnsops.py:329 sm_mrq, :369 fastbconv_sk",
         "scale_round": "gemini_seal_tpu/ops/rnsops.py:256 multiply_add_plain_with_scaling_variant, "
                        ":287 multiply_sub_plain_with_scaling_variant, :145 "
                        "decrypt_scale_and_round",
     }
     sources = {k: f"gemini_seal_tpu_torch/csrc/{v[0]}" for k, v in cuda.KERNELS.items()}
+    library_calls = {
+        "galois": "torch.index_select (one table) / torch.gather (R tables) over the last axis",
+        "galois:paired": "torch.gather over the last axis",
+        "galois:signed": "the permutation part: torch.index_select / torch.gather (no PyTorch "
+                         "call flips the signs mod p)",
+        "galois:signed_paired": "the permutation part: torch.gather (no PyTorch call flips "
+                                "the signs mod p)",
+    }
     kernels = []
-    for kernel, row in rows.items():
+    for label, row in rows.items():
         bp = row["by_path"]
         total = {f: sum(p[f] for p in bp.values())
                  for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "imads")}
-        is_galois = kernel == "galois"
+        is_galois = label.startswith("galois")
         fields = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if is_galois else ())
         kernels.append({
-            "name": kernel, "route": "cuda", "source": sources[kernel],
-            "replaces": replaces[kernel],
-            "launches": sum(p["launches"][kernel] for p in paths.values()),
-            "launches_by_path": {p: paths[p]["launches"][kernel] for p in paths},
-            "launches_per_step": {p: paths[p]["launches_per_step"][kernel] for p in paths},
+            "name": label, "route": "cuda", "source": sources[label.split(":")[0]],
+            "replaces": replaces[label],
+            "launches": sum(p["launches"][label] for p in paths.values()),
+            "launches_by_path": {p: paths[p]["launches"][label] for p in paths},
+            # a path with two forms (the two key forms) lists each form's
+            "launches_per_step": {p: [f[label] for f in paths[p]["launches_per_step_by_form"]]
+                                  if "launches_per_step_by_form" in paths[p]
+                                  else paths[p]["launches_per_step"][label] for p in paths},
             "max_abs_err": row["max_abs_err"],
-            "ms": total["ms"] if not rehearsal else None,
-            "plain_ms": total["plain_ms"] if not rehearsal else None,
+            "ms": total["ms"] if not rehearsal and bp else None,
+            "plain_ms": total["plain_ms"] if not rehearsal and bp else None,
             "bound_ms": total["bound_ms"],
             "bound_by": "operations" if total["imads"] / INT32_IMAD_PER_S
-                        >= total["bytes"] / HBM_BYTES_PER_S else "bytes",
-            "library_ms": total["library_ms"] if is_galois and not rehearsal else None,
-            "library_call": ("torch.index_select (one table) / torch.gather (R tables) "
-                             "over the last axis") if is_galois else
-                            "none: no PyTorch call computes u64 modular arithmetic",
+                        > total["bytes"] / HBM_BYTES_PER_S else "bytes",
+            "library_ms": total["library_ms"] if is_galois and not rehearsal and bp else None,
+            "library_call": library_calls.get(label, "none: no PyTorch call computes u64 "
+                                                     "modular arithmetic"),
             "timed_calls": ("encryption and decryption (no step launches it)"
-                            if kernel == "scale_round" else "each path's step"),
+                            if label == "scale_round" else
+                            "none: no step launches it" if not bp else "each path's step"),
             "per_step_by_path": {p: {f: v[f] if f == "bound_ms" or not rehearsal else None
                                      for f in fields}
                                  for p, v in bp.items()},

@@ -11,6 +11,7 @@ the port's pipelines:
     rk = relin_keys_from_array(ctx, np.stack([pk.data.data for pk in jrk.key(2)]))
     gk = galois_keys_from_arrays(ctx, {e: np.stack([pk.data.data for pk in jgk.key(e)])
                                        for e in elts})
+    stack = galois_stack_from_array(ctx, jstack)      # [R, nb, 2, L_key, N]
     sk = secret_key_from_array(ctx, jkg.secret_key.data)
     pt = plaintext_from_array(ctx, jpt.data)          # a BFV plaintext
 """
@@ -18,6 +19,7 @@ the port's pipelines:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ciphertext import Ciphertext, Plaintext
 from .context import SealContext
@@ -26,7 +28,7 @@ from .ops.backend import to_tensor
 from .params import PARMS_ID_ZERO
 
 __all__ = ["ciphertext_from_arrays", "relin_keys_from_array", "galois_keys_from_arrays",
-           "secret_key_from_array", "plaintext_from_array"]
+           "galois_stack_from_array", "secret_key_from_array", "plaintext_from_array"]
 
 
 def _parms_id(parms_id) -> tuple:
@@ -80,6 +82,18 @@ def galois_keys_from_arrays(context: SealContext, keys) -> GaloisKeys:
         gk.keys[GaloisKeys.get_index(int(elt))] = _kswitch_key(context, data, "Galois key")
     gk.parms_id = context.key_parms_id
     return gk
+
+
+def galois_stack_from_array(context: SealContext, data) -> torch.Tensor:
+    """u64[R, n_bundles, 2, L_key, N] stacked Galois keys (the JAX
+    package's stack for the hoisted rotations, plain or counter-rotated by
+    its prepermute_galois_stack), of a CKKS or BFV context -> the int64
+    tensor that the rotate-many steps take."""
+    data = np.asarray(data, dtype=np.uint64)
+    L, n = _level_shape(context, context.key_parms_id)
+    if data.ndim != 5 or data.shape[2:] != (2, L, n):
+        raise ValueError(f"Galois key stack {data.shape} does not match [R, nb, 2, {L}, {n}]")
+    return to_tensor(data, context.device)
 
 
 def secret_key_from_array(context: SealContext, data) -> SecretKey:

@@ -9,8 +9,13 @@
 // lowers these as four 32-bit digit planes summed per term, then a renormalise
 // and a Barrett pass.
 //
-//   out[r, g, j, n] = sum_k A'[r, g, k, j|0, n] * W[g, k, j, n|0]  mod p_j
+//   out[r, g, j, n] = sum_k A'[r, g|0, k, j|0, n] * W[g, k, j, n|0]  mod p_j
 //   A' = A * s[g, k] mod q[g, k] when a pre-scale is given
+//
+// With A's group axis at size 1 (a_has_g = 0) one input is broadcast over the
+// G groups with stride 0: the contraction of _shared_digit_inner_product
+// (models/pipelines.py:318-336), the shared mod-up digits against R
+// counter-rotated keys, reads the digits in place rather than R copies.
 //
 // Bound on the H100: per output K 64x64->128 products (7 IMADs each) plus
 // one Barrett (24), and one pre-scale mul_mod per input; the bytes are one
@@ -25,6 +30,7 @@
 // weights have N stride 0 and stay in L1; key rows are read coalesced.
 #include "modops.cuh"
 
+template <bool A_HAS_G>
 __global__ void contract_kernel(u64* __restrict__ out, const u64* __restrict__ A,
                                 const u64* __restrict__ W,
                                 const u64* __restrict__ mod, const u64* __restrict__ r0s,
@@ -42,7 +48,7 @@ __global__ void contract_kernel(u64* __restrict__ out, const u64* __restrict__ A
         const int j = (int)(t % J);
         t /= J;
         const int g = (int)(t % G);
-        const long long rg = t;  // r * G + g
+        const long long rg = A_HAS_G ? t : t / G;  // r * G + g, or r when broadcast
         const u64* a_row = A + (rg * K * ja + (a_has_j ? j : 0)) * (long long)n + c;
         const u64* w_row = W + ((long long)g * K * J + j) * wn + (w_has_n ? c : 0);
         u64 hi = 0, lo = 0;
@@ -58,17 +64,18 @@ __global__ void contract_kernel(u64* __restrict__ out, const u64* __restrict__ A
     }
 }
 
-// out [R, G, J, N]; A [R, G, K, Ja, N]; W [G, K, J, Nw]; mod/r0/r1 [J];
+// out [R, G, J, N]; A [R, G or 1, K, Ja, N]; W [G, K, J, Nw]; mod/r0/r1 [J];
 // s/sq/sr0/sr1 [G, K] or all NULL.
 extern "C" int gst_contract(void* out, const void* A, const void* W,
                             const void* mod, const void* r0, const void* r1,
                             const void* s, const void* sq, const void* sr0, const void* sr1,
                             long long R, long long G, long long K, long long J,
-                            long long a_has_j, long long n, long long w_has_n,
-                            void* stream) {
+                            long long a_has_j, long long a_has_g, long long n,
+                            long long w_has_n, void* stream) {
     const long long total = R * G * J * n;
     const int threads = 256;
-    contract_kernel<<<grid_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
+    auto kernel = a_has_g ? contract_kernel<true> : contract_kernel<false>;
+    kernel<<<grid_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
         (u64*)out, (const u64*)A, (const u64*)W, (const u64*)mod, (const u64*)r0,
         (const u64*)r1, (const u64*)s, (const u64*)sq, (const u64*)sr0, (const u64*)sr1,
         total, (int)G, (int)K, (int)J, (int)a_has_j, (int)n, (int)w_has_n);

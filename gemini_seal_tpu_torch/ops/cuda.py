@@ -9,7 +9,11 @@ every pointer and the stream).  A build or launch failure raises; nothing
 falls back to the plain versions.
 
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one right
-after its kernel launched, and nowhere else.
+after its kernel launched, and nowhere else.  A call in one of a kernel's
+modes (``MODES``) also adds one under ``"kernel:mode"``, so that a check can
+tell that the mode ran: the large-ring NTT, the signed, paired and signed
+paired Galois permutations, the contraction with its input broadcast over
+the groups.  A call runs in at most one mode.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["KERNELS", "LAUNCHES", "build", "call", "reset_launches",
+__all__ = ["KERNELS", "MODES", "LAUNCHES", "build", "call", "reset_launches",
            "BUILD_REPORT"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,20 +47,28 @@ _I = ctypes.c_int64
 # kernel name -> (source, C entry point, argtypes)
 KERNELS = {
     "ntt": ("ntt.cu", "gst_ntt", [
-        _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
+        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
     "tensor_product": ("tensor_product.cu", "gst_tensor_product", [
         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "contract": ("contract.cu", "gst_contract", [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _P]),
+        _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "elementwise": ("elementwise.cu", "gst_elementwise", [
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "galois": ("galois.cu", "gst_galois", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "galois": ("galois.cu", "gst_galois", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "behz": ("behz.cu", "gst_behz", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "scale_round": ("scale_round.cu", "gst_scale_round", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
+# kernel name -> the modes that a call names (see ``call``)
+MODES = {
+    "ntt": ("large_ring",),
+    "galois": ("signed", "paired", "signed_paired"),
+    "contract": ("broadcast",),
+}
+
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES.update({f"{k}:{m}": 0 for k, ms in MODES.items() for m in ms})
 
 # name -> {"path", "seconds", "ptxas"} of the build that this process loaded
 BUILD_REPORT: Dict[str, dict] = {}
@@ -144,13 +156,18 @@ def ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def call(name: str, *args) -> None:
-    """Launch kernel `name` on the current stream; raise on a CUDA error."""
+def call(name: str, *args, mode=None) -> None:
+    """Launch kernel `name` on the current stream; raise on a CUDA error.
+
+    mode: None, or the call's mode of MODES[name], counted beside the
+    kernel's own count."""
     fn = _func(name)
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
     LAUNCHES[name] += 1
+    if mode is not None:
+        LAUNCHES[f"{name}:{mode}"] += 1
 
 
 def check(t: torch.Tensor, what: str) -> None:

@@ -17,7 +17,8 @@ multi_special_primes.cpp and Evaluator::switch_key_inplace):
 - :func:`batched_rotated_inner_product`: the hoisted rotations' inner
   product, one ``galois`` launch that permutes the shared digits for all R
   rotations straight into [..., R, nb, n_ext, N], then one ``contract``
-  launch per key component;
+  launch per key component (:func:`keys_stack_inner_product`, which the
+  counter-rotated keys' shared digits use as they are);
 - :func:`fused_moddown`: one rounded division of (P*c + acc) by
   P*q_last, two ``elementwise`` epilogues around ``ntt`` and ``contract``.
 
@@ -44,7 +45,7 @@ from .rnsops import _dot_mod_128, _slice_tables, crt_drop_constants
 
 __all__ = ["KeySwitchPlan", "switch_key", "compute_modup_digits",
            "keyswitch_inner_product", "rescale_special",
-           "batched_rotated_inner_product", "fused_moddown"]
+           "batched_rotated_inner_product", "keys_stack_inner_product", "fused_moddown"]
 
 
 class KeySwitchPlan:
@@ -336,13 +337,26 @@ def batched_rotated_inner_product(ct_k, rot_tabs, keys_stack, plan: KeySwitchPla
     lead = ct_k.shape[:-3]
     R = rot_tabs.shape[0]
     rk = galois_permute(ct_k.contiguous().reshape(lead + (nb * n_ext, N)), rot_tabs)
-    rk = rk.reshape(lead + (R, nb, n_ext, N))
+    return keys_stack_inner_product(rk.reshape(lead + (R, nb, n_ext, N)), keys_stack, plan)
+
+
+def keys_stack_inner_product(digits, keys_stack, plan: KeySwitchPlan):
+    """The 128-bit inner product of digits with R stacked keys, one
+    ``contract`` launch per key component with the rotation axis as its
+    group axis.
+
+    digits: [..., R, nb, n_ext, N] (one set per key), or [..., 1, nb,
+    n_ext, N] (one set read in place for every key: the contraction's
+    broadcast mode); keys_stack: int64[R, nb', 2, L_key, N] with nb' >= nb.
+    Returns (a0, a1): int64[..., R, n_ext, N] reduced accumulators.
+    """
+    nb = digits.shape[-3]
     keys_ext = keys_stack[:, :nb].index_select(-2, plan.ext_key_indices)  # [R, nb, 2, n_ext, N]
     ext = plan.ext_limbs
     out = []
     for l in range(2):
         w = keys_ext[:, :, l].contiguous()
-        out.append(contract_mulmod_128(rk, w, ext.p.reshape(-1), ext.ratio0.reshape(-1),
+        out.append(contract_mulmod_128(digits, w, ext.p.reshape(-1), ext.ratio0.reshape(-1),
                                        ext.ratio1.reshape(-1)))
     return out[0], out[1]
 

@@ -212,7 +212,7 @@ def _contract_shapes(a, w):
         raise ValueError("contract: a is [..., G, K, Ja, N], w is [G, K, J, Nw]")
     G, K, J, Nw = w.shape
     Ga, Ka, Ja, N = a.shape[-4:]
-    if (Ga, Ka) != (G, K) or Ja not in (1, J) or Nw not in (1, N):
+    if Ga not in (1, G) or Ka != K or Ja not in (1, J) or Nw not in (1, N):
         raise ValueError(f"contract: shapes {tuple(a.shape)} and {tuple(w.shape)} do not match")
     return G, K, J, Ja, N, Nw
 
@@ -229,10 +229,12 @@ def contract_plain(a, w, p, ratio0, ratio1, prescale=None):
 
 
 def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None):
-    """out[..., g, j, n] = sum_k A'[..., g, k, j|0, n] * W[g, k, j, n|0] mod p_j.
+    """out[..., g, j, n] = sum_k A'[..., g|0, k, j|0, n] * W[g, k, j, n|0] mod p_j.
 
-    a: [..., G, K, Ja, N] with Ja in {1, J}; w: [G, K, J, Nw] with Nw in
-    {1, N} (per-limb constant weights, or per-coefficient key rows);
+    a: [..., Ga, K, Ja, N] with Ga in {1, G} (one input broadcast over the
+    groups, read in place: the kernel's ``broadcast`` mode) and Ja in {1, J};
+    w: [G, K, J, Nw] with Nw in {1, N} (per-limb constant weights, or
+    per-coefficient key rows);
     p/ratio0/ratio1: [J] (any shape of J elements).  ``prescale`` =
     (s, q, q_r0, q_r1), each [G, K]: A' = A * s mod q first (the mod-up's
     punctured-inverse multiply and the mod-down's inv_hat multiply).
@@ -242,20 +244,23 @@ def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None):
     if not is_cuda(a, w, p):
         return contract_plain(a, w, p, ratio0, ratio1, prescale)
     G, K, J, Ja, N, Nw = _contract_shapes(a, w)
+    Ga = a.shape[-4]
     consts = [p, ratio0, ratio1] + (list(prescale) if prescale is not None else [])
     for t, what in [(a, "contract a"), (w, "contract w")] + [(c, "contract const") for c in consts]:
         cuda.check(t, what)
     if p.numel() != J or (prescale is not None and any(v.numel() != G * K for v in prescale)):
         raise ValueError("contract: constant sizes do not match the weights")
-    R = a.numel() // (G * K * Ja * N)
+    R = a.numel() // (Ga * K * Ja * N)
     out = torch.empty(a.shape[:-4] + (G, J, N), dtype=torch.int64, device=a.device)
     if out.numel() == 0:
         return out
     s = prescale if prescale is not None else (None, None, None, None)
+    broadcast = Ga == 1 and G > 1
     cuda.call("contract", cuda.ptr(out), cuda.ptr(a), cuda.ptr(w),
               cuda.ptr(p), cuda.ptr(ratio0), cuda.ptr(ratio1),
               cuda.ptr(s[0]), cuda.ptr(s[1]), cuda.ptr(s[2]), cuda.ptr(s[3]),
-              R, G, K, J, int(Ja > 1), N, int(Nw > 1))
+              R, G, K, J, int(Ja > 1), int(not broadcast), N, int(Nw > 1),
+              mode="broadcast" if broadcast else None)
     return out
 
 

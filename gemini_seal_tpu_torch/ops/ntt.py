@@ -15,8 +15,9 @@ The transforms reproduce the JAX package's lazy dataflow bit for bit:
 Shoup butterflies, forward output lazy in [0, 4p) with the accumulating
 lane kept in [0, 2p) by a conditional subtract at every stage, inverse
 output lazy in [0, 2p) with n^{-1} folded into the last stage.  On a CUDA
-tensor they launch the hand-written kernel (csrc/ntt.cu); on a CPU tensor
-they run the plain per-stage radix-2 version below.
+tensor they launch the hand-written kernel (csrc/ntt.cu), in its large-ring
+mode above N=16384; on a CPU tensor they run the plain per-stage radix-2
+version below.
 """
 
 from __future__ import annotations
@@ -34,12 +35,15 @@ from .backend import is_cuda, to_tensor
 
 __all__ = ["NTTTables", "build_ntt_tables", "ntt_forward", "ntt_inverse",
            "ntt_forward_lazy", "ntt_inverse_lazy", "ntt_plain",
-           "MAX_KERNEL_N"]
+           "MAX_KERNEL_N", "SHARED_N"]
 
 U64 = 0xFFFFFFFFFFFFFFFF
 
-# the kernel keeps one row in shared memory: 227 KB per block on Hopper
-MAX_KERNEL_N = 16384
+# the kernel keeps a row of up to SHARED_N coefficients in one block's shared
+# memory (227 KB on Hopper) and runs larger rings, up to SEAL's cap, in its
+# large-ring mode (global-memory stages, then SHARED_N sub-rows)
+SHARED_N = 16384
+MAX_KERNEL_N = 65536
 
 
 def _shoupify(x: int, p: int) -> int:
@@ -242,8 +246,7 @@ def _transform(x, tables: NTTTables, inverse: bool, canonical: bool):
     if tables.modulus.numel() != L:
         raise ValueError(f"ntt: {tables.modulus.numel()} table rows for {L} limbs")
     if n > MAX_KERNEL_N or n < 2:
-        raise ValueError(f"ntt kernel holds one row in shared memory: N={n} is "
-                         f"outside [2, {MAX_KERNEL_N}]")
+        raise ValueError(f"ntt kernel: N={n} is outside [2, {MAX_KERNEL_N}]")
     if inverse:
         w, ws = tables.inv_root_powers, tables.scaled_inv_root_powers
     else:
@@ -254,8 +257,12 @@ def _transform(x, tables: NTTTables, inverse: bool, canonical: bool):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    cuda.call("ntt", cuda.ptr(out), cuda.ptr(x), x.numel() // n, L, log_n,
-              *(cuda.ptr(t) for t in consts), int(inverse), int(canonical))
+    large = n > SHARED_N
+    # the large-ring forward stages write scratch that its sub-row launch reads
+    tmp = torch.empty_like(x) if large and not inverse else None
+    cuda.call("ntt", cuda.ptr(out), cuda.ptr(x), cuda.ptr(tmp), x.numel() // n, L, log_n,
+              *(cuda.ptr(t) for t in consts), int(inverse), int(canonical),
+              mode="large_ring" if large else None)
     return out
 
 

@@ -1,7 +1,8 @@
 """The port's Galois automorphisms and rotations against the JAX package on
 the CPU: GaloisTool's element maps and NTT permutation tables,
 apply_galois_ntt, Galois keys (made after the relin keys under the pinned
-seed), build_ckks_rotate and build_ckks_rotate_many, exact equality.
+seed), build_ckks_rotate and build_ckks_rotate_many, exact equality (the
+counter-rotated-key form: equal decodes).
 """
 
 import jax
@@ -119,10 +120,16 @@ def test_rotate_many_equal_and_decodes(keys):
     dec = T.Decryptor(tctx, k["tkg"].secret_key, device="cpu")
     enc = T.CKKSEncoder(tctx, device="cpu")
     vals = k["vals"] + [0.0] * 4
+    # the counter-rotated-key form decodes equal to the default form
+    pstack = T.prepermute_galois_stack(tctx.first_context_data().galois_tool, k["elts"],
+                                       k["tgk"].stacked(*k["elts"]))
+    pgot = T.build_ckks_rotate_many(tctx, list(STEPS), prepermuted_keys=True,
+                                    device="cpu")(to_tensor(a, "cpu"), pstack)
+    assert pgot.shape == got.shape
     for r, s in enumerate(STEPS):
-        out = enc.decode(dec.decrypt(T.Ciphertext(got[r, 1], k["jct"].parms_id, True,
-                                                  k["jct"].scale)))
+        out, pout = (enc.decode(dec.decrypt(T.Ciphertext(g[r, 1], k["jct"].parms_id, True,
+                                                         k["jct"].scale)))
+                     for g in (got, pgot))
         for i in range(len(k["vals"])):
             assert abs(out[i] - vals[i + s]) < 1e-3, (s, out[: len(k["vals"])])
-    with pytest.raises(NotImplementedError):
-        T.build_ckks_rotate_many(tctx, list(STEPS), prepermuted_keys=True, device="cpu")
+        assert max(abs(x - y) for x, y in zip(out, pout)) < 1e-5

@@ -1,8 +1,11 @@
 """Card tests: each hand-written kernel against its plain PyTorch version on
 the same inputs on the card, bit for bit (the BFV slice's at config 3's
-ring, with the 60-bit Bsk primes and m_tilde = 2^32), and the fused step,
-the train step, the hoisted rotations and the BFV steps against the plain
-path.  They need a CUDA card and skip without one; on a machine with
+ring, with the 60-bit Bsk primes and m_tilde = 2^32; the NTT's large-ring
+mode at N=32768 and 65536; the Galois kernel's signed and paired modes and
+the contraction's broadcast mode), and the fused step, the train step, the
+hoisted rotations in both key forms, the BFV steps and rotations and the
+deep polynomial against the plain path, and keygen, encryption and
+decryption at N=32768.  They need a CUDA card and skip without one; on a machine with
 an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
@@ -69,14 +72,40 @@ def test_ntt_kernel(card, log_n, name, mult):
 
 
 def test_ntt_kernel_rejects_what_it_cannot_take(card):
-    mods = _mods(1 << 15, (50,))
-    tables = tn.build_ntt_tables(15, mods).to(card)
-    with pytest.raises(ValueError, match="shared memory"):
-        tn.ntt_forward(torch.zeros((1, 1 << 15), dtype=torch.int64, device=card), tables)
+    import dataclasses
+
+    # above SEAL's cap of 65536 (tables relabelled: the check comes first)
+    small = tn.build_ntt_tables(10, _mods(1024, (50,))).to(card)
+    tables = dataclasses.replace(small, coeff_count=1 << 17, coeff_count_power=17)
+    with pytest.raises(ValueError, match="outside"):
+        tn.ntt_forward(torch.zeros((1, 1 << 17), dtype=torch.int64, device=card), tables)
     tables = tn.build_ntt_tables(10, _mods(1024)).to(card)
     x = torch.zeros((3, 2048), dtype=torch.int64, device=card)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tn.ntt_forward(x, tables)
+
+
+_LARGE_TABLES = {}
+
+
+@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("name,mult", [("ntt_forward_lazy", 4), ("ntt_forward", 4),
+                                       ("ntt_inverse_lazy", 2), ("ntt_inverse", 2)])
+def test_ntt_kernel_large_ring(card, log_n, name, mult):
+    """The large-ring mode (N = 32768, 65536): global-memory stages, then
+    16384-coefficient sub-rows, with a 60-bit, a 59-bit and a 40-bit prime,
+    inputs over the whole lazy range."""
+    n = 1 << log_n
+    if log_n not in _LARGE_TABLES:
+        mods = _mods(n, (60, 59, 40))
+        _LARGE_TABLES[log_n] = (mods, tn.build_ntt_tables(log_n, mods).to(card))
+    mods, tables = _LARGE_TABLES[log_n]
+    x = _res(np.random.default_rng(log_n), mods, (2,), n, mult)
+    x[0, :, -1] = [mult * p - 1 for p in mods]
+    before = cuda.LAUNCHES["ntt:large_ring"]
+    got, want = _both(getattr(tn, name), to_tensor(x, card), tables)
+    assert cuda.LAUNCHES["ntt:large_ring"] == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("square", [False, True])
@@ -118,6 +147,28 @@ def test_contract_kernel(card, form):
         w = to_tensor(rng.integers(0, 1 << 60, size=(1, 2, J, 1), dtype=np.uint64), card)
     got, want = _both(contract_mulmod_128, a, w, p, r0, r1, prescale=prescale)
     assert torch.equal(got, want)
+
+
+def test_contract_kernel_broadcast(card):
+    """One input broadcast over the groups (the shared-digit contraction:
+    digits [B, 1, nb, n_ext, N] against R keys [R, nb, n_ext, N])."""
+    from gemini_seal_tpu_torch.modulus import Modulus
+
+    n = 2048
+    rng = np.random.default_rng(4)
+    ext = _mods(n, (50, 40, 40, 60))
+    J = len(ext)
+    p = to_tensor(np.array(ext, dtype=np.uint64), card)
+    r0 = to_tensor(np.array([Modulus(q).const_ratio[0] for q in ext], dtype=np.uint64), card)
+    r1 = to_tensor(np.array([Modulus(q).const_ratio[1] for q in ext], dtype=np.uint64), card)
+    a = to_tensor(rng.integers(0, 1 << 60, size=(3, 1, 3, J, n), dtype=np.uint64), card)
+    w = to_tensor(rng.integers(0, 1 << 60, size=(5, 3, J, n), dtype=np.uint64), card)
+    before = cuda.LAUNCHES["contract:broadcast"]
+    got, want = _both(contract_mulmod_128, a, w, p, r0, r1)
+    assert cuda.LAUNCHES["contract:broadcast"] == before + 1
+    assert got.shape == (3, 5, J, n) and torch.equal(got, want)
+    copied = contract_mulmod_128(a.expand(3, 5, 3, J, n).contiguous(), w, p, r0, r1)
+    assert torch.equal(got, copied)
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "neg", "mul", "muladd", "addmul", "barrett64"])
@@ -176,6 +227,36 @@ def test_galois_kernel(card, log_n, R):
         assert torch.equal(got[:, r], x.index_select(-1, tabs[r]))
 
 
+@pytest.mark.parametrize("log_n", [10, 13, 16])
+@pytest.mark.parametrize("mode", ["signed", "paired", "signed_paired"])
+def test_galois_kernel_modes(card, log_n, mode):
+    """The signed power-basis mode (a zero input at a flipped position stays
+    0) and the paired mode, against the plain version."""
+    n = 1 << log_n
+    tool = GaloisTool(log_n, card)
+    elts = tool.get_elts_from_steps([1, 2, 3, -1]) + [2 * n - 1]
+    mods = _mods(n)
+    moduli = to_tensor(np.array(mods, dtype=np.uint64), card)
+    signed, paired = mode != "paired", mode != "signed"
+    tabs = tool.coeff_tables(elts) if signed else tool.ntt_tables(elts)
+    lead = (2, len(elts), 2) if paired else (2, 2)             # [B, (R,) components]
+    x = _res(np.random.default_rng(log_n), mods, lead, n)
+    src, neg = tool._coeff_table(elts[0])
+    x[..., src[neg][:64]] = 0
+    x = to_tensor(x, card)
+    if paired:
+        x = x.reshape(2, len(elts), 2 * len(mods), n)
+    before = dict(cuda.LAUNCHES)
+    got, want = _both(galois_permute, x, tabs, moduli if signed else None, paired=paired)
+    for m in ("signed", "paired", "signed_paired"):
+        assert cuda.LAUNCHES[f"galois:{m}"] - before[f"galois:{m}"] == int(m == mode)
+    assert torch.equal(got, want)
+    if signed and not paired:
+        limbs = LimbConstants.from_moduli(mods, card)
+        one = tool.apply_galois(x, elts[0], limbs)
+        assert torch.equal(one, got[:, :, 0].reshape(one.shape))
+
+
 def test_galois_kernel_rejects_what_it_cannot_take(card):
     tool = GaloisTool(10, card)
     tabs = tool.ntt_tables([3])
@@ -189,6 +270,12 @@ def test_galois_kernel_rejects_what_it_cannot_take(card):
     shifted = torch.cat([tabs.reshape(-1), tabs.reshape(-1)])[1:1025].reshape(1, 1024)
     with pytest.raises(ValueError, match="aligned"):
         galois_permute(torch.zeros((3, 1024), dtype=torch.int64, device=card), shifted)
+    moduli = torch.ones(3, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="whole sets"):
+        galois_permute(torch.zeros((4, 1024), dtype=torch.int64, device=card), tabs, moduli)
+    with pytest.raises(ValueError, match="carry"):
+        galois_permute(torch.zeros((2, 3, 1024), dtype=torch.int64, device=card), tabs,
+                       paired=True)
 
 
 def test_train_step_and_rotate_many_match_plain_path(card):
@@ -391,3 +478,101 @@ def test_bfv_steps_match_plain_path(card, chain):
     sq = T.build_bfv_mul_relin(ctx, square=True)
     got, want = _both(sq, a, rk)
     assert torch.equal(got, want)
+
+
+# --- BFV rotations, counter-rotated keys, the deep polynomial and the large
+# --- rings: the steps against the plain path on the card
+
+
+@pytest.mark.parametrize("prepermuted", [False, True])
+def test_rotations_match_plain_path(card, prepermuted):
+    n = 1024
+    parms = T.EncryptionParameters(T.SchemeType.BFV)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [40] * 5))
+    parms.set_plain_modulus(T.PlainModulus.batching(n, 20))
+    parms.set_random_seed(tuple(range(8)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none)
+    kg = T.KeyGenerator(ctx)
+    be = T.BatchEncoder(ctx)
+    t = parms.plain_modulus.value
+    v = np.random.default_rng(31).integers(0, t, n)
+    ct = T.Encryptor(ctx, kg.public_key()).encrypt(be.encode(v.tolist()))
+    steps = [1, 2, 3]
+    tool = ctx.first_context_data().galois_tool
+    elts = tool.get_elts_from_steps(steps)
+    stack = kg.galois_keys(elts).stacked(*elts)
+    if prepermuted:
+        stack = T.prepermute_galois_stack(tool, elts, stack)
+    a = torch.stack([ct.data] * 2)
+    got, want = _both(T.build_bfv_rotate_many(ctx, steps, prepermuted_keys=prepermuted),
+                      a, stack)
+    assert torch.equal(got, want)
+    dec = T.Decryptor(ctx, kg.secret_key)
+    half = n // 2
+    for r, s in enumerate(steps):
+        out = be.decode(dec.decrypt(T.Ciphertext(got[r, 1], ct.parms_id, False)))
+        assert out == np.concatenate([np.roll(v[:half], -s), np.roll(v[half:], -s)]).tolist()
+    # CKKS rotate-many in the same key form
+    cparms = T.EncryptionParameters(T.SchemeType.CKKS)
+    cparms.set_poly_modulus_degree(n)
+    cparms.set_coeff_modulus(T.CoeffModulus.create(n, [50, 40, 40, 50]))
+    cparms.set_random_seed(tuple(range(71, 79)))
+    cctx = T.SealContext(cparms, sec_level=T.SecLevelType.none)
+    ckg = T.KeyGenerator(cctx)
+    cstack = ckg.galois_keys(elts).stacked(*elts)
+    if prepermuted:
+        cstack = T.prepermute_galois_stack(tool, elts, cstack)
+    enc = T.CKKSEncoder(cctx)
+    cct = T.Encryptor(cctx, ckg.public_key()).encrypt(enc.encode([0.5, -1.0, 2.0], 2.0 ** 40))
+    ca = torch.stack([cct.data] * 2)
+    got, want = _both(T.build_ckks_rotate_many(cctx, steps, prepermuted_keys=prepermuted),
+                      ca, cstack)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rotate_mode", ["tree", "flat"])
+def test_poly_eval_matches_plain_path(card, rotate_mode):
+    n = 1024
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [59, 30, 30, 30, 59]))
+    parms.set_random_seed(tuple(range(8)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none)
+    kg = T.KeyGenerator(ctx)
+    enc = T.CKKSEncoder(ctx)
+    coeffs = [1.0, -0.5, 0.25, 0.125, 0.0625]
+    steps = [1, 2, 3] if rotate_mode == "flat" else [1, 2]
+    elts = ctx.first_context_data().galois_tool.get_elts_from_steps(steps)
+    gks = kg.galois_keys(elts).stacked(*elts)
+    step, deep, scale = T.build_ckks_poly_eval(ctx, coeffs, 2.0 ** 30, enc, rotate_sum_log2=2,
+                                               coeff_precision_bits=25,
+                                               rotate_mode=rotate_mode)
+    v = np.random.default_rng(32).uniform(-1, 1, n // 2)
+    ct = T.Encryptor(ctx, kg.public_key()).encrypt(enc.encode(v.tolist(), 2.0 ** 30))
+    a = torch.stack([ct.data] * 2)
+    got, want = _both(step, a, kg.relin_keys().stacked(2), gks)
+    assert torch.equal(got, want)
+    out = enc.decode(T.Decryptor(ctx, kg.secret_key).decrypt(
+        T.Ciphertext(got[1], deep, True, scale)))
+    p = lambda x: sum(c * x ** k for k, c in enumerate(coeffs))  # noqa: E731
+    assert np.max(np.abs(np.asarray(out) - sum(p(np.roll(v, -j)) for j in range(4)))) < 1e-3
+
+
+def test_keygen_encrypt_decrypt_n32768(card):
+    """Key generation, encryption and decryption at N=32768, every NTT in
+    the large-ring mode."""
+    n = 32768
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [59, 40, 40, 59]))
+    parms.set_random_seed(tuple(range(8)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none)
+    cuda.reset_launches()
+    kg = T.KeyGenerator(ctx)
+    enc = T.CKKSEncoder(ctx)
+    v = np.random.default_rng(33).uniform(-1, 1, n // 2)
+    ct = T.Encryptor(ctx, kg.public_key()).encrypt(enc.encode(v.tolist(), 2.0 ** 40))
+    out = enc.decode(T.Decryptor(ctx, kg.secret_key).decrypt(ct))
+    assert cuda.LAUNCHES["ntt:large_ring"] >= 3
+    assert np.max(np.abs(np.asarray(out) - v)) < 1e-4

@@ -89,11 +89,15 @@ def test_entry_points_default_to_the_card():
                  lambda: T.build_ckks_mul_relin_rescale(ctx),
                  lambda: T.build_ckks_rotate(ctx, 1),
                  lambda: T.build_ckks_rotate_many(ctx, [1, 2]),
+                 lambda: T.build_ckks_rotate_many(ctx, [1, 2], prepermuted_keys=True),
                  lambda: T.build_ckks_train_step(ctx),
                  lambda: T.entry()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     kg = T.KeyGenerator(ctx, device="cpu")
+    encoder = T.CKKSEncoder(ctx, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.build_ckks_poly_eval(ctx, [1.0, 0.5, 0.25], 2.0 ** 20, encoder)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.Encryptor(ctx, kg.public_key())
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -117,7 +121,9 @@ def test_bfv_entry_points_default_to_the_card():
                  lambda: T.build_bfv_mul_relin(ctx),
                  lambda: T.build_bfv_mul_relin(ctx, square=True),
                  lambda: T.build_bfv_mul_relin_modswitch(ctx),
-                 lambda: T.build_bfv_mul_relin_modswitch(ctx, fused_drop=False)):
+                 lambda: T.build_bfv_mul_relin_modswitch(ctx, fused_drop=False),
+                 lambda: T.build_bfv_rotate_many(ctx, [1, 2]),
+                 lambda: T.build_bfv_rotate_many(ctx, [1], prepermuted_keys=True)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
@@ -134,12 +140,21 @@ def test_chip_smoke_cpu_rehearsal():
                                                   "ntt", "scale_round", "tensor_product"]
     forms = [json.loads(l)["form"] for l in lines if '"batch2"' in l]
     assert forms == ["multiply", "square", "sequential_multiply", "train_step", "rotate_many",
-                     "bfv_chain_fused_drop", "bfv_chain_per_level_drop", "bfv_multiply_n8192",
-                     "bfv_square_n8192", "bfv_multiply_n4096"]
+                     "rotate_many_prepermuted", "bfv_chain_fused_drop",
+                     "bfv_chain_per_level_drop", "bfv_multiply_n8192", "bfv_square_n8192",
+                     "bfv_multiply_n4096", "bfv_rotate_rows", "bfv_rotate_columns",
+                     "bfv_rotate_many", "bfv_rotate_many_prepermuted",
+                     "ckks_mul_relin_rescale_n16384", "ckks_poly_eval_n32768", "n65536"]
     paths = [json.loads(l) for l in lines if '"main_path"' in l]
     assert [p["path"] for p in paths] == ["mul_relin_rescale", "train_step", "rotate_many",
-                                          "bfv_mul_relin_chain", "bfv_mul_relin"]
-    assert all(p["decode_exact"] for p in paths[3:])
+                                          "bfv_mul_relin_chain", "bfv_mul_relin",
+                                          "bfv_rotate_rows", "bfv_rotate_many",
+                                          "ckks_mul_relin_rescale_n16384",
+                                          "ckks_poly_eval_n32768", "n65536"]
+    assert all(p["decode_exact"] for p in paths[3:7])
+    assert paths[6]["key_forms_decode_equal"]
+    assert paths[2]["max_abs_decode_diff_between_key_forms"] < 1e-5
+    assert paths[8]["max_abs_decode_err"] < 1e-3 and paths[9]["ntt_round_trip_exact"]
 
 
 def test_chip_smoke_refuses_without_a_card():

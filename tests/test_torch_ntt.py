@@ -3,7 +3,9 @@
 Tables equal to build_ntt_tables; the four transforms (plain versions, the
 CPU path of the ``ntt`` kernel) equal to the jitted JAX transforms at
 N in {256, 1024}, lazy ranges included, with a 60-bit prime among the
-moduli (the JAX package's overflow-free forward butterfly).
+moduli (the JAX package's overflow-free forward butterfly); and, on two
+rows, to the JAX host-plane transforms at N in {32768, 65536}, the rings
+of the kernel's large-ring mode.
 """
 
 import dataclasses
@@ -57,3 +59,38 @@ def test_transforms_equal(log_n, name, lazy_in):
     want = np.asarray(jax.jit(lambda v: getattr(jn, name)(v, tables))(x))
     got = getattr(tn, name)(to_tensor(x, "cpu"), tn.build_ntt_tables(log_n, mods).to("cpu"))
     np.testing.assert_array_equal(want, to_numpy(got))
+
+
+_LARGE = {}
+
+
+def _large_tables(log_n):
+    """JAX and port tables at a large ring, built once per ring: a 60-bit
+    prime (the BEHZ conversion primes' width) and a 59-bit one (config 5's
+    outer primes)."""
+    if log_n not in _LARGE:
+        n = 1 << log_n
+        mods = [get_primes(n, 60, 1)[0], get_primes(n, 59, 1)[0]]
+        _LARGE[log_n] = (mods, jn.build_ntt_tables(log_n, mods),
+                         tn.build_ntt_tables(log_n, mods).to("cpu"))
+    return _LARGE[log_n]
+
+
+@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("name,lazy_in", [
+    ("ntt_forward_lazy", 4), ("ntt_forward", 4),
+    ("ntt_inverse_lazy", 2), ("ntt_inverse", 2),
+])
+def test_large_ring_transforms_equal(log_n, name, lazy_in):
+    """The rings above one block's shared memory (N = 32768, 65536; the
+    kernel's large-ring mode on the card): the plain version on two rows,
+    inputs over the whole lazy range, against the JAX host-plane NTT."""
+    n = 1 << log_n
+    mods, jtables, ttables = _large_tables(log_n)
+    rng = np.random.default_rng(log_n)
+    x = np.stack([rng.integers(0, lazy_in * p, size=(1, n), dtype=np.uint64)
+                  for p in mods], axis=1)
+    x[0, :, -1] = [lazy_in * p - 1 for p in mods]
+    want = getattr(jn, name)(x, jtables)
+    got = getattr(tn, name)(to_tensor(x, "cpu"), ttables)
+    np.testing.assert_array_equal(np.asarray(want), to_numpy(got))
