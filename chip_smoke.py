@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # small rings on the CPU, plain versions
 
-Ten paths run, each driven once with every launch counter set to 0 just
+Twelve paths run, each driven once with every launch counter set to 0 just
 before it and read just after it.  Three are CKKS, on bench.py's ring
 (N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
 seed range(71, 79), scale 2^40):
@@ -52,24 +52,44 @@ with its rings and seed range(8), nothing cut:
   inverse NTT of [16, 2, 4, 65536] random residues and the sequential
   multiply + relinearize + rescale at batch 16; decodes within 1e-4.
 
+Two are bench_all.py's cells of the linear layers and the bootstrap, with
+its rings and seed range(8):
+
+- bootstrap_n4096 (bench_all.py:445-508): N=4096, plan_bootstrap_chain(4096,
+  radix=4, nsp=3, restored=2) (24 primes, three of them special),
+  linear_mode "split", EvalMod "cosine", scale 2^45; keygen of the 87
+  rotation keys and the conjugation key, a seeded message (seed 13)
+  encrypted and mod-switched to the last level, one refresh (mod-raise,
+  three CoeffToSlot groups, the conjugation split, two Chebyshev EvalMods,
+  three SlotToCoeff groups); the input and the refreshed output must have
+  the sha256 digests of the JAX package's (BOOTSTRAP_N4096), so the
+  decode's max error must be its 1.5640752616911192e-05;
+- dense8x8_n8192 (bench_all.py:305-339): N=8192, [50, 40, 40, 50], the
+  hoisted-rotation matvec (build_ckks_matvec, fused mod-down) of an 8x8
+  matrix M (seed 1) on x = 0.5 at scale 2^40, batch 16; decodes within
+  1e-4 of M x.
+
 The script
 
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
-2. builds the seven kernels (nvcc, one process each, in parallel) and
+2. builds the eight kernels (nvcc, one process each, in parallel) and
    prints each one's -Xptxas -v summary;
-3. drives the ten paths; as each kernel call happens it
+3. drives the twelve paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
    launches of the check are taken off the counters), and times each
    call of a path's step both ways with
    CUDA events beside the least time the card could take for the same
-   work (and, for ``galois``, beside torch.index_select / torch.gather);
+   work (and, for ``galois``, beside torch.index_select / torch.gather,
+   for ``mod_raise`` beside torch.remainder); in the refresh, whose step
+   repeats each call shape many times, each distinct call is timed once;
    ``scale_round``, which runs in encryption and decryption only, is timed
    at those calls; a kernel's modes (the large-ring NTT, the signed and
    paired Galois permutations, the broadcast contraction) are rows of
    their own;
-5. checks batch 2 of every step form against the port's plain path on the
-   card, bit for bit, and each one's decode (with BFV rotate_columns);
+5. checks batch 2 of every step form (the refresh: its one ciphertext)
+   against the port's plain path on the card, bit for bit, and each one's
+   decode (with BFV rotate_columns);
 6. times each step at its full batch (ops/s or rotations/s, and the NTT
    rates of configs 4 and N=65536), the two key forms of each hoisted
    rotation in turns, and profiles each (device time by kernel, device
@@ -83,6 +103,7 @@ no result when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -121,6 +142,25 @@ PATH_KERNELS = {
     "ckks_poly_eval_n32768": ("ntt:large_ring", "tensor_product", "contract",
                               "elementwise", "galois"),
     "n65536": ("ntt:large_ring", "tensor_product", "contract", "elementwise"),
+    "bootstrap_n4096": ("ntt", "tensor_product", "contract", "elementwise", "galois",
+                        "mod_raise"),
+    "dense8x8_n8192": ("ntt", "contract", "elementwise", "galois"),
+}
+# paths whose step repeats a call shape many times: each distinct call is
+# timed once and its time counted for every call of that shape
+TIME_ONCE = ("bootstrap_n4096",)
+
+# bench_all.py's bootstrap cell (bench_all.py:445-508) run by the JAX package
+# eagerly on the CPU (tests/test_torch_bootstrap.py::test_bench_all_cell_digests
+# recomputes these): the sha256 of the exhausted input's and of the refreshed
+# output's u64 residues, and the refresh's max decode error
+BOOTSTRAP_N4096 = {
+    "input_sha256": "f47972d88c9f9727cad28240bad41c211eb5e52424dd4d1202c2bd41bb0e212a",
+    "output_sha256": "e8232d5c2b986c4699dd13ee8f35a7a83bedbdcbb1bad149348b3050f6d017db",
+    "max_err": 1.5640752616911192e-05,
+    "rotation_steps": 87,
+    "levels_restored": 3,
+    "levels_consumed": 18,
 }
 # ... and the kernels each BFV path's encryption and decryption must launch
 PHASE_KERNELS = {"encode_encrypt": ("scale_round",), "decrypt_decode": ("scale_round",)}
@@ -152,7 +192,7 @@ class Recorder:
 
     def __init__(self, check):
         from gemini_seal_tpu_torch.models import pipelines
-        from gemini_seal_tpu_torch.ops import cuda, galois, modops, ntt, rnsops
+        from gemini_seal_tpu_torch.ops import cuda, galois, modops, modraise, ntt, rnsops
 
         kernel_of = {ntt.ntt_forward_lazy: "ntt", ntt.ntt_forward: "ntt",
                      ntt.ntt_inverse_lazy: "ntt", ntt.ntt_inverse: "ntt",
@@ -161,7 +201,8 @@ class Recorder:
                      modops.rns_elementwise: "elementwise",
                      galois.galois_permute: "galois",
                      rnsops.behz: "behz",
-                     rnsops.scale_round: "scale_round"}
+                     rnsops.scale_round: "scale_round",
+                     modraise.mod_raise_lift: "mod_raise"}
         self.check = check
         self.launches = cuda.LAUNCHES
         self.path = None
@@ -383,6 +424,8 @@ def work(kernel, fn_name, args, kwargs, result):
             ops = out.numel() * (3 * IMAD_MULMOD + 2 * IMAD_BARRETT64)
         else:
             ops = (out.shape[-1] + out.numel()) * (IMAD_MAC + IMAD_BARRETT128)
+    elif kernel == "mod_raise":
+        ops = outs[0].numel() * IMAD_BARRETT64  # one Barrett-64 per output
     else:
         ops = outs[0].numel() * ELEMENTWISE_MULMODS[args[0]] * IMAD_MULMOD
     return nbytes, ops
@@ -407,6 +450,14 @@ def library_call(torch, x, tabs, moduli=None, paired=False):
     return lambda: torch.gather(src, -1, gidx)
 
 
+def remainder_call(torch, x, p, ratio1, q0_mod_p, half):
+    """The one PyTorch call nearest to mod_raise_lift: torch.remainder of
+    the input broadcast over the L primes (the reduction without the sign
+    fix, which no one call computes)."""
+    pc = p.reshape(-1, 1)
+    return lambda: torch.remainder(x, pc)
+
+
 def steady(torch, fn, count: int):
     """(count per second, iterations, seconds) of fn over about 3 s."""
     fn()
@@ -427,8 +478,9 @@ def steady(torch, fn, count: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run the same phases at N=1024, batch 2, two rotations, "
-                         "on the CPU through the plain versions (no result line)")
+                    help="run the same phases at N=1024 (the refresh at N=128), batch 2, "
+                         "two rotations, on the CPU through the plain versions (no result "
+                         "line)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -441,7 +493,7 @@ def main(argv=None) -> int:
     import gemini_seal_tpu_torch as T
     from gemini_seal_tpu_torch.ops import cuda
     from gemini_seal_tpu_torch.ops import ntt as ntt_ops
-    from gemini_seal_tpu_torch.ops.backend import plain_versions, to_tensor
+    from gemini_seal_tpu_torch.ops.backend import plain_versions, to_numpy, to_tensor
     from gemini_seal_tpu_torch.utils import native
 
     rehearsal = args.cpu_rehearsal
@@ -470,13 +522,14 @@ def main(argv=None) -> int:
               "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                           for k, v in report.items()}})
 
-    # 3. the ten paths, each once, with the counters from 0 ---------------------
+    # 3. the twelve paths, each once, with the counters from 0 ------------------
     # (4. checks and times each kernel call as it happens: check_call)
     paths = {}
     phase_launches = {}
     mark = {}
     rows = {}
     seen = set()
+    timed_once = {}
 
     def check_call(path, phase, label, kernel, fn, cargs, ckw, result):
         """4. Every distinct (function, mode, shapes) call, keygen through
@@ -509,7 +562,7 @@ def main(argv=None) -> int:
         if phase != "step" and kernel != "scale_round":
             return
         nbytes, ops = work(kernel, fn.__name__, cargs, ckw, result)
-        ms = plain_ms = lib_ms = None
+        ms = plain_ms = lib_ms = lib = None
         if kernel == "galois":
             lib = library_call(torch, *cargs, **ckw)
             same = lib().reshape(result.shape) == result
@@ -520,14 +573,23 @@ def main(argv=None) -> int:
             del same
             if not ok:
                 raise AssertionError(f"{label}: the library call differs from the kernel")
-        if not rehearsal:
+        if kernel == "mod_raise":
+            lib = remainder_call(torch, *cargs, **ckw)
+            # the remainder is the lift wherever the input is not negative
+            if not bool(((lib() == result) | (cargs[0] > cargs[4])).all()):
+                raise AssertionError(f"{label}: torch.remainder differs from the kernel")
+        if not rehearsal and key in timed_once:
+            ms, plain_ms, lib_ms = timed_once[key]
+        elif not rehearsal:
             ms = event_ms(torch, lambda: fn(*cargs, **ckw), reps)
             # a plain version slower than 20 ms is timed over one call
             plain_reps = 1 if plain_s is None or plain_s > 0.02 else max(2, reps // 4)
             with plain_versions():
                 plain_ms = event_ms(torch, lambda: fn(*cargs, **ckw), plain_reps)
-            if kernel == "galois":
+            if lib is not None:
                 lib_ms = event_ms(torch, lib, reps)
+            if path in TIME_ONCE:
+                timed_once[key] = (ms, plain_ms, lib_ms)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_IMAD_PER_S) * 1e3
         row["step_calls"].append({"path": path, "fn": fn.__name__, "signature": repr(key[2]),
                                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -937,6 +999,101 @@ def main(argv=None) -> int:
     if not (err < 1e-4 and ntt_round_trip):
         raise AssertionError(f"n65536 decodes {err} from v^2 (NTT round trip "
                              f"exact: {ntt_round_trip})")
+
+    # 3k. bootstrap_n4096: bench_all.py's refresh cell, bit for bit the JAX
+    # package's (the rehearsal: N=128, radix 3, two special primes)
+    from gemini_seal_tpu_torch.models.bootstrap import build_ckks_bootstrap, plan_bootstrap_chain
+
+    n7, radix7, nsp7 = (128, 3, 2) if rehearsal else (4096, 4, 3)
+    t0 = begin("bootstrap_n4096")
+    set_phase("keygen")
+    bits7, levels7, _ = plan_bootstrap_chain(n7, radix=radix7, nsp=nsp7, restored=2)
+    parms7 = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms7.set_poly_modulus_degree(n7)
+    parms7.set_coeff_modulus(T.CoeffModulus.create(n7, bits7))
+    parms7.set_n_special_primes(nsp7)
+    parms7.set_random_seed(tuple(range(8)))
+    ctx7 = T.SealContext(parms7, sec_level=T.SecLevelType.none, device=device)
+    kg7 = T.KeyGenerator(ctx7, device=device)
+    enc7 = T.Encryptor(ctx7, kg7.public_key(), device=device)
+    keygen7 = time.perf_counter() - t0
+    set_phase("build")
+    encoder7 = T.CKKSEncoder(ctx7, device=device)
+    scale7 = 2.0 ** 45
+    t1 = time.perf_counter()
+    boot7, out_pid7, out_scale7, rsteps7, conj7 = build_ckks_bootstrap(
+        ctx7, scale7, encoder7, linear_mode="split", radix=radix7, device=device)
+    build7 = time.perf_counter() - t1
+    set_phase("keygen")
+    t1 = time.perf_counter()
+    tool7 = ctx7.first_context_data().galois_tool
+    elts7 = tool7.get_elts_from_steps(rsteps7)
+    gk7 = kg7.galois_keys(elts7 + [conj7])
+    rot7, conjk7 = gk7.stacked(*elts7), gk7.stacked(conj7)
+    rk7 = kg7.relin_keys().stacked(2)
+    keygen_s["bootstrap_n4096"] = keygen7 + time.perf_counter() - t1
+    emit({"phase": "keygen", "path": "bootstrap_n4096", "host_prng": "native g++ build"
+          if native.available() else "pure python", "seconds": keygen_s["bootstrap_n4096"],
+          "galois_keys": len(elts7) + 1, "rotation_stack_bytes": rot7.numel() * 8})
+    set_phase("encode_encrypt")
+    msg7 = np.random.default_rng(13).uniform(-1, 1, encoder7.slot_count)
+    ev7 = T.Evaluator(ctx7, device=device)
+    ct7 = enc7.encrypt(encoder7.encode(msg7.tolist(), scale7))
+    while ctx7.get_context_data(ct7.parms_id).next_context_data is not None:
+        ct7 = ev7.mod_switch_to_next(ct7)
+    x7 = ct7.data
+    set_phase("step")
+    out7, per_step = count_step(boot7, x7, rot7, conjk7, rk7)
+    set_phase("decrypt_decode")
+    dec7 = T.Decryptor(ctx7, kg7.secret_key, device=device)
+    got7 = np.asarray(encoder7.decode(dec7.decrypt(T.Ciphertext(out7, out_pid7, True,
+                                                               out_scale7)), as_complex=True))
+    err7 = float(np.abs(got7 - msg7).max())
+    digests7 = {"input_sha256": hashlib.sha256(to_numpy(x7).tobytes()).hexdigest(),
+                "output_sha256": hashlib.sha256(to_numpy(out7).tobytes()).hexdigest()}
+    levels_out7 = out7.shape[-2]
+    end("bootstrap_n4096", t0, per_step, out_shape=list(out7.shape), n=n7,
+        max_err=err7, levels_restored=levels_out7, levels_consumed=levels7,
+        rotation_steps=len(rsteps7), build_seconds=build7, **digests7)
+    if rehearsal:
+        if not err7 < 1e-6:
+            raise AssertionError(f"bootstrap refresh decodes {err7} from the message")
+    else:
+        want7 = BOOTSTRAP_N4096
+        if (digests7["input_sha256"] != want7["input_sha256"]
+                or digests7["output_sha256"] != want7["output_sha256"] or err7 != want7["max_err"]
+                or (len(rsteps7), levels_out7, levels7) != (want7["rotation_steps"],
+                                                            want7["levels_restored"],
+                                                            want7["levels_consumed"])):
+            raise AssertionError(f"bootstrap_n4096 differs from the JAX package's refresh: "
+                                 f"{digests7}, max_err {err7}")
+
+    # 3l. dense8x8_n8192: bench_all.py's encrypted dense layer (hoisted matvec)
+    n8 = 1024 if rehearsal else 8192
+    t0 = begin("dense8x8_n8192")
+    set_phase("keygen")
+    ctx8, kg8, encoder8, enc8, dec8 = ckks_context(n8, [50, 40, 40, 50])
+    M8 = np.random.default_rng(1).uniform(-0.5, 0.5, size=(8, 8))
+    slots8 = encoder8.slot_count
+    diag8 = {d: [M8[i % 8, (i + d) % 8] for i in range(slots8)] for d in range(8)}
+    tool8 = ctx8.first_context_data().galois_tool
+    elts8 = tool8.get_elts_from_steps(list(range(1, 8)))
+    gk8 = kg8.galois_keys(elts8).stacked(*elts8)
+    keygen_done("dense8x8_n8192", t0)
+    set_phase("encode_encrypt")
+    ct8 = enc8.encrypt(encoder8.encode([0.5] * slots8, 2.0 ** 40))
+    b8 = max(batch // 8, 2)
+    a8 = ct8.data.expand((b8,) + tuple(ct8.data.shape)).contiguous()
+    set_phase("step")
+    mv8 = T.build_ckks_matvec(ctx8, diag8, 2.0 ** 40, encoder8, device=device)
+    out8, per_step = count_step(mv8, a8, gk8)
+    set_phase("decrypt_decode")
+    want8 = np.asarray([0.5 * M8[i % 8].sum() for i in range(slots8)])
+    err8 = max(max_err(encoder8.decode(dec8.decrypt(T.Ciphertext(
+        out8[b].contiguous(), ct8.parms_id, True, 2.0 ** 80))), want8) for b in (0, b8 - 1))
+    end("dense8x8_n8192", t0, per_step, out_shape=list(out8.shape), max_abs_decode_err=err8)
+    if not err8 < 1e-4:
+        raise AssertionError(f"dense8x8_n8192 decodes {err8} from M x")
     recorder.remove()
     for kernel, row in rows.items():
         emit({"phase": "kernel_check", "kernel": kernel, "equal": True, **row})
@@ -1026,6 +1183,31 @@ def main(argv=None) -> int:
               "max_abs_decode_err": err})
         del got_k, got_p
 
+    # the refresh (one ciphertext, no batch axis) and the dense layer (batch
+    # 2) against the port's plain path on the card
+    got_k = boot7(x7, rot7, conjk7, rk7)
+    with plain_versions():
+        got_p = boot7(x7, rot7, conjk7, rk7)
+    sync()
+    if not torch.equal(got_k, got_p):
+        raise AssertionError("bootstrap_n4096 differs from the plain path")
+    emit({"phase": "batch2", "form": "bootstrap_n4096", "equal_to_plain": True, "batch": 1,
+          "output_sha256": hashlib.sha256(to_numpy(got_k).tobytes()).hexdigest()})
+    a8_2 = a8[:2].contiguous()
+    got_k = mv8(a8_2, gk8)
+    with plain_versions():
+        got_p = mv8(a8_2, gk8)
+    sync()
+    if not torch.equal(got_k, got_p):
+        raise AssertionError("batch-2 dense8x8_n8192 differs from the plain path")
+    err = max_err(encoder8.decode(dec8.decrypt(T.Ciphertext(got_k[1].contiguous(), ct8.parms_id,
+                                                           True, 2.0 ** 80))), want8)
+    if not err < 1e-4:
+        raise AssertionError(f"batch-2 dense8x8_n8192 decodes {err} from M x")
+    emit({"phase": "batch2", "form": "dense8x8_n8192", "equal_to_plain": True,
+          "max_abs_decode_err": err})
+    del got_k, got_p
+
     # the power-basis limb drop of config 3's per-level chain at batch 128,
     # timed as a function (its four launches together) beside its bound
     from gemini_seal_tpu_torch.ops import rnsops
@@ -1096,6 +1278,12 @@ def main(argv=None) -> int:
          lambda: ntt_ops.ntt_inverse(x6, tables6), b6),
         ("n65536", "ckks_mul_relin_rescale_n65536_ops_per_s", b6,
          lambda: step6(a6, a6, rk6), b6),
+        ("bootstrap_n4096", "ckks_bootstrap_n4096_refreshes_per_s", 1,
+         lambda: boot7(x7, rot7, conjk7, rk7), 1),
+        (("dense8x8_n8192_b2", "ckks_dense8x8_hoisted_n8192_layers_per_s", 2,
+          lambda: mv8(a8_2, gk8), 2),
+         ("dense8x8_n8192", "ckks_dense8x8_hoisted_n8192_layers_per_s", b8,
+          lambda: mv8(a8, gk8), b8)),
     ]
     keygen_of = {"mul_relin_rescale_sequential": "mul_relin_rescale",
                  "bfv_mul_relin_n8192": "bfv_mul_relin_chain",
@@ -1103,7 +1291,11 @@ def main(argv=None) -> int:
                  "rotate_many_prepermuted": "rotate_many",
                  "bfv_rotate_many_prepermuted": "bfv_rotate_many",
                  "ntt_n16384": "ckks_mul_relin_rescale_n16384",
-                 "ntt_fwd_n65536": "n65536", "ntt_inv_n65536": "n65536"}
+                 "ntt_fwd_n65536": "n65536", "ntt_inv_n65536": "n65536",
+                 "dense8x8_n8192_b2": "dense8x8_n8192"}
+    extra_of = {"bootstrap_n4096": {
+        "max_err": err7, "levels_restored": levels_out7, "levels_consumed": levels7,
+        "launches_per_refresh": sum(paths["bootstrap_n4096"]["launches_per_step"].values())}}
     if not rehearsal:
         for entry in timed:
             turns = [(entry, 1)] if isinstance(entry[0], str) else [
@@ -1118,7 +1310,7 @@ def main(argv=None) -> int:
                       "device_ms_per_step": prof["device_ms_per_step"],
                       "device_busy_share": prof["device_busy_share"],
                       "keygen_seconds": keygen_s[keygen_of.get(path, path)],
-                      "peak_device_bytes": peak, "card": card})
+                      "peak_device_bytes": peak, "card": card, **extra_of.get(path, {})})
                 emit({"phase": "profile", "path": path, "turn": turn, **prof})
         emit({"phase": "memory", "peak_device_bytes_with_checks_by_path":
               {p: v["peak_device_bytes_with_checks"] for p, v in paths.items()}, "card": card})
@@ -1149,6 +1341,8 @@ def main(argv=None) -> int:
         "scale_round": "gemini_seal_tpu/ops/rnsops.py:256 multiply_add_plain_with_scaling_variant, "
                        ":287 multiply_sub_plain_with_scaling_variant, :145 "
                        "decrypt_scale_and_round",
+        "mod_raise": "gemini_seal_tpu/models/bootstrap.py:253 mod_raise (the centred lift, "
+                     ":261-264)",
     }
     sources = {k: f"gemini_seal_tpu_torch/csrc/{v[0]}" for k, v in cuda.KERNELS.items()}
     library_calls = {
@@ -1158,14 +1352,16 @@ def main(argv=None) -> int:
                          "call flips the signs mod p)",
         "galois:signed_paired": "the permutation part: torch.gather (no PyTorch call flips "
                                 "the signs mod p)",
+        "mod_raise": "the reduction part: torch.remainder broadcast over the L primes (no "
+                     "PyTorch call lifts the negative residues)",
     }
     kernels = []
     for label, row in rows.items():
         bp = row["by_path"]
         total = {f: sum(p[f] for p in bp.values())
                  for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "imads")}
-        is_galois = label.startswith("galois")
-        fields = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if is_galois else ())
+        has_lib = label.startswith("galois") or label == "mod_raise"
+        fields = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if has_lib else ())
         kernels.append({
             "name": label, "route": "cuda", "source": sources[label.split(":")[0]],
             "replaces": replaces[label],
@@ -1181,7 +1377,7 @@ def main(argv=None) -> int:
             "bound_ms": total["bound_ms"],
             "bound_by": "operations" if total["imads"] / INT32_IMAD_PER_S
                         > total["bytes"] / HBM_BYTES_PER_S else "bytes",
-            "library_ms": total["library_ms"] if is_galois and not rehearsal and bp else None,
+            "library_ms": total["library_ms"] if has_lib and not rehearsal and bp else None,
             "library_call": library_calls.get(label, "none: no PyTorch call computes u64 "
                                                      "modular arithmetic"),
             "timed_calls": ("encryption and decryption (no step launches it)"

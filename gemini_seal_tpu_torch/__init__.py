@@ -13,8 +13,11 @@ rotate, hoisted multi-rotation (plain and counter-rotated keys), the
 flagship train step (multiply + relinearize + rescale, rotate, add;
 ``entry()``) and the deep polynomial evaluation; the BFV BatchEncoder, the
 BEHZ multiply + relinearize, its mod-switch chain, the power-basis Galois
-automorphism and the hoisted row rotations.  Every ring degree up to
-SEAL's cap, N=65536, runs on the card.
+automorphism and the hoisted row rotations; the encrypted matvecs
+(hoisted diagonal method and baby-step/giant-step), the Chebyshev-cosine
+EvalMod and the CKKS bootstrap (models.bootstrap, whose mod-raise runs on
+the ``mod_raise`` kernel), and the Evaluator's modulus switch.  Every ring
+degree up to SEAL's cap, N=65536, runs on the card.
 """
 
 from .modulus import CoeffModulus, Modulus, PlainModulus, SecLevelType
@@ -25,9 +28,11 @@ from .keys import GaloisKeys, KSwitchKeys, PublicKey, RelinKeys, SecretKey
 from .keygenerator import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
+from .evaluator import Evaluator
 from .encoders import BatchEncoder, CKKSEncoder
 from .models.pipelines import (build_bfv_mul_relin, build_bfv_mul_relin_modswitch,
-                               build_bfv_rotate_many, build_ckks_mul_relin_rescale,
+                               build_bfv_rotate_many, build_ckks_matvec,
+                               build_ckks_matvec_bsgs, build_ckks_mul_relin_rescale,
                                build_ckks_poly_eval, build_ckks_rotate,
                                build_ckks_rotate_many, build_ckks_train_step,
                                prepermute_galois_stack)
@@ -51,11 +56,14 @@ __all__ = [
     "KeyGenerator",
     "Encryptor",
     "Decryptor",
+    "Evaluator",
     "BatchEncoder",
     "CKKSEncoder",
     "build_bfv_mul_relin",
     "build_bfv_mul_relin_modswitch",
     "build_bfv_rotate_many",
+    "build_ckks_matvec",
+    "build_ckks_matvec_bsgs",
     "build_ckks_mul_relin_rescale",
     "build_ckks_poly_eval",
     "build_ckks_rotate",

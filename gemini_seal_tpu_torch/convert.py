@@ -12,6 +12,7 @@ the port's pipelines:
     gk = galois_keys_from_arrays(ctx, {e: np.stack([pk.data.data for pk in jgk.key(e)])
                                        for e in elts})
     stack = galois_stack_from_array(ctx, jstack)      # [R, nb, 2, L_key, N]
+    conj = galois_stack_from_array(ctx, jgk.stacked(2 * n - 1))  # one key
     sk = secret_key_from_array(ctx, jkg.secret_key.data)
     pt = plaintext_from_array(ctx, jpt.data)          # a BFV plaintext
 """
@@ -87,12 +88,15 @@ def galois_keys_from_arrays(context: SealContext, keys) -> GaloisKeys:
 def galois_stack_from_array(context: SealContext, data) -> torch.Tensor:
     """u64[R, n_bundles, 2, L_key, N] stacked Galois keys (the JAX
     package's stack for the hoisted rotations, plain or counter-rotated by
-    its prepermute_galois_stack), of a CKKS or BFV context -> the int64
-    tensor that the rotate-many steps take."""
+    its prepermute_galois_stack, or the bootstrap's rotation stack), or one
+    stacked key u64[n_bundles, 2, L_key, N] (the bootstrap's conjugation
+    key), of a CKKS or BFV context -> the int64 tensor that the steps
+    take."""
     data = np.asarray(data, dtype=np.uint64)
     L, n = _level_shape(context, context.key_parms_id)
-    if data.ndim != 5 or data.shape[2:] != (2, L, n):
-        raise ValueError(f"Galois key stack {data.shape} does not match [R, nb, 2, {L}, {n}]")
+    if data.ndim not in (4, 5) or data.shape[-3:] != (2, L, n):
+        raise ValueError(f"Galois key stack {data.shape} does not match "
+                         f"[R, nb, 2, {L}, {n}] or [nb, 2, {L}, {n}]")
     return to_tensor(data, context.device)
 
 

@@ -11,7 +11,10 @@ and the exact RNS decomposition and CRT decode ladder match the reference
 bit for bit.  A CKKS scalar encodes as the constant polynomial: its
 residues broadcast across N are already its NTT form (no transform); a
 non-finite scalar raises (the JAX package lets an infinite value*scale
-through its size check).  The IntegerEncoder comes with a later slice.
+through its size check).  encode_at_base decomposes the same rounded
+coefficients over another modulus set (the key-switch extended base), and
+encode_stack encodes many vectors with one NTT launch.  The IntegerEncoder
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -248,34 +251,66 @@ class CKKSEncoder:
             return self._encode_scalar(float(values), scale, cd)
         if isinstance(values, complex):
             values = [values] * self.slots
+        dest = self._decompose_exact(self._rounded(values, scale, cd), cd.parms.coeff_modulus)
+        out = ntt_forward(to_tensor(dest, self.device), cd.ntt_tables)
+        return Plaintext(data=out, parms_id=cd.parms_id, scale=scale)
+
+    def _rounded(self, values, scale: float, cd) -> np.ndarray:
+        """The vector encode's host part (ckks.h:405-617): slot values ->
+        the rounded integer-valued float64 coefficients [N]."""
         n = self._n
         values = list(values)
         if len(values) > self.slots:
             raise ValueError("values_size is too large")
         if scale <= 0 or int(math.log2(scale)) + 1 >= cd.total_coeff_modulus_bit_count:
             raise ValueError("scale out of bounds")
-
         vals_arr = np.asarray(values, dtype=np.complex128)
         conj_values = np.zeros(n, dtype=np.complex128)
         conj_values[self._index_map[: vals_arr.size]] = vals_arr
         conj_values[self._index_map[self.slots : self.slots + vals_arr.size]] = (
             np.conj(vals_arr)
         )
-
         conj_values = self._embedding_inverse(conj_values)
-        n_inv = (1.0 / n) * scale
-        conj_values *= n_inv
-
+        conj_values *= (1.0 / n) * scale
         reals = conj_values.real
         d = np.maximum(np.abs(reals), 1.0)
-        max_coeff_bit_count = int(np.max(np.floor(np.log2(d)))) + 2
-        if max_coeff_bit_count >= cd.total_coeff_modulus_bit_count:
+        if int(np.max(np.floor(np.log2(d)))) + 2 >= cd.total_coeff_modulus_bit_count:
             raise ValueError("encoded values are too large")
+        return np.sign(reals) * np.floor(np.abs(reals) + 0.5)
 
-        rounded = np.sign(reals) * np.floor(np.abs(reals) + 0.5)
-        dest = self._decompose_exact(rounded, cd.parms.coeff_modulus)
-        out = ntt_forward(to_tensor(dest, self.device), cd.ntt_tables)
-        return Plaintext(data=out, parms_id=cd.parms_id, scale=scale)
+    def encode_stack(self, values_list, scale: float, parms_id, moduli=None,
+                     ntt_tables=None) -> torch.Tensor:
+        """Many vector encodes at one scale and level with one ``ntt``
+        launch: int64[M, L, N] in NTT form, row m equal to the residues of
+        encode(values_list[m], scale, parms_id) (a real or complex scalar
+        entry fills every slot).  With `moduli` (Modulus objects or ints)
+        and their `ntt_tables` (a device mirror) the same rounded
+        coefficients are decomposed over that base instead: e.g. the
+        key-switch extended base q ∪ P of the fused matvecs' raw-accumulator
+        products.  Nothing of the JAX package does this batching; the rows
+        are bit-identical to its encode and encode_at_base."""
+        cd = self.context.get_context_data(parms_id)
+        if cd is None:
+            raise ValueError("parms_id is not valid for encryption parameters")
+        if moduli is None:
+            moduli, ntt_tables = cd.parms.coeff_modulus, cd.ntt_tables
+        rows = []
+        for values in values_list:
+            if isinstance(values, (int, float, complex)):
+                values = [values] * self.slots
+            rows.append(self._decompose_exact(self._rounded(values, scale, cd), moduli))
+        if not rows:
+            raise ValueError("nothing to encode")
+        return ntt_forward(to_tensor(np.stack(rows), ntt_tables.modulus.device), ntt_tables)
+
+    def encode_at_base(self, values, scale: float, parms_id, moduli, ntt_tables):
+        """Encode to an arbitrary coprime modulus set: the residues of the
+        same rounded integer coefficients that encode() produces at this
+        parms_id and scale, decomposed over `moduli` (Modulus objects or
+        ints) and transformed with `ntt_tables` (a device mirror).
+
+        Returns int64[len(moduli), N] in NTT form on the tables' device."""
+        return self.encode_stack([values], scale, parms_id, moduli, ntt_tables)[0]
 
     def _encode_scalar(self, value: float, scale: float, cd) -> Plaintext:
         """Constant encode: all slots equal -> constant polynomial
@@ -302,16 +337,16 @@ class CKKSEncoder:
         below 2^62 through an exact float->int64 cast, above through the
         exact mantissa/exponent split (a rounded double IS m * 2^e with a
         53-bit integer mantissa) on Python ints."""
-        L = len(moduli)
-        dest = np.zeros((L, rounded.shape[0]), dtype=np.uint64)
+        values = [int(getattr(mod, "value", mod)) for mod in moduli]
+        dest = np.zeros((len(values), rounded.shape[0]), dtype=np.uint64)
         small = np.abs(rounded) < 2.0 ** 62
         as_int = np.where(small, rounded, 0.0).astype(np.int64)
-        for j, mod in enumerate(moduli):
-            dest[j] = np.mod(as_int, np.int64(mod.value)).astype(np.uint64)
+        for j, p in enumerate(values):
+            dest[j] = np.mod(as_int, np.int64(p)).astype(np.uint64)
         for i in np.nonzero(~small)[0]:
             v = int(rounded[i])  # exact: the double is an integer
-            for j, mod in enumerate(moduli):
-                dest[j, i] = v % mod.value
+            for j, p in enumerate(values):
+                dest[j, i] = v % p
         return dest
 
     # -- decode ----------------------------------------------------------

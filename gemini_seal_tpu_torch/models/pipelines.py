@@ -3,9 +3,10 @@
 Port of these steps of gemini_seal_tpu/models/pipelines.py: CKKS multiply
 + relinearize + rescale (sequential and fused forms), rotate, the hoisted
 multi-rotation step in both key forms (plain and counter-rotated keys), the
-flagship train step (multiply + relinearize + rescale, rotate, add) and the
-deep polynomial evaluation; the BFV (BEHZ) multiply + relinearize, its
-mod-switch chain and the hoisted row rotations.  Every step takes
+flagship train step (multiply + relinearize + rescale, rotate, add), the
+deep polynomial evaluation and the encrypted matrix-vector products (the
+hoisted diagonal method and baby-step/giant-step); the BFV (BEHZ) multiply
++ relinearize, its mod-switch chain and the hoisted row rotations.  Every step takes
 ciphertext data shaped [..., size, L, N] with any leading batch axes, as
 the JAX functions do.
 PyTorch runs eagerly; each modular-arithmetic stage is one launch of a
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..context import SealContext
@@ -27,7 +29,7 @@ from ..ops.galois import galois_permute
 from ..ops.keyswitch import (KeySwitchPlan, batched_rotated_inner_product,
                              compute_modup_digits, fused_moddown, keys_stack_inner_product,
                              keyswitch_inner_product, rescale_special, switch_key)
-from ..ops.modops import add_mod, mul_mod
+from ..ops.modops import add_mod, contract_mulmod_128, mul_mod
 from ..ops.ntt import ntt_forward_lazy, ntt_inverse
 from ..ops.rnsops import (MultiDropPlan, divide_and_round_multi, divide_and_round_q_last,
                           divide_and_round_q_last_ntt, fast_floor, fastbconv_m_tilde,
@@ -36,7 +38,8 @@ from ..ops.rnsops import (MultiDropPlan, divide_and_round_multi, divide_and_roun
 __all__ = ["build_ckks_mul_relin_rescale", "build_ckks_rotate",
            "build_ckks_rotate_many", "build_ckks_train_step", "build_ckks_poly_eval",
            "build_bfv_mul_relin", "build_bfv_mul_relin_modswitch", "build_bfv_rotate_many",
-           "prepermute_galois_stack", "tensor_product_plain"]
+           "prepermute_galois_stack", "tensor_product_plain", "build_ckks_matvec",
+           "build_ckks_matvec_bsgs"]
 
 
 def tensor_product_plain(a, b, limbs: LimbConstants):
@@ -530,3 +533,231 @@ def build_ckks_poly_eval(context: SealContext, coeffs, scale: float, encoder,
         return rotate_sum_tree(r, galois_keys_stack)
 
     return step, deep_id, target_scale
+
+
+def _contract(a, w, limbs: LimbConstants):
+    """out[..., g, j, n] = sum_k a[..., g|0, k, j, n] * w[g, k, j, n] mod
+    p_j: one ``contract`` launch (K3), exact in 128 bits, then one Barrett.
+    The matvecs' diagonal sums (accumulate_mulmod_128 over the rotation or
+    baby axis in the JAX package) are such contractions with per-coefficient
+    weights."""
+    return contract_mulmod_128(a.contiguous(), w, limbs.p.reshape(-1),
+                               limbs.ratio0.reshape(-1), limbs.ratio1.reshape(-1))
+
+
+def _sum_rows(x, limbs: LimbConstants):
+    """sum_k x[..., k, :, :] mod p: one unit-weight ``contract`` launch over
+    the axis -3 of x [..., K, L, N] -> [..., L, N].  Equal to the JAX
+    package's chain of add_poly over k: every partial sum is canonical and
+    modular addition is exact."""
+    K, L = x.shape[-3], x.shape[-2]
+    ones = torch.ones((1, K, L, 1), dtype=torch.int64, device=x.device)
+    return _contract(x.unsqueeze(-4), ones, limbs).squeeze(-3)
+
+
+def build_ckks_matvec(context: SealContext, diagonals, scale: float, encoder,
+                      parms_id=None, fuse_moddown: bool = True, device=None) -> Callable:
+    """Encrypted matrix-vector product by the diagonal method with hoisted
+    rotations: y = sum_d diag_d (*) rot(x, d), one key-switch mod-up feeding
+    every rotation (the JAX package's build_ckks_matvec).
+
+    diagonals: {step d: slot values} for the nonzero generalized diagonals
+    M[i, (i+d) % cols]; step 0 needs no key.  Returns fn(ct,
+    galois_keys_stack) -> int64[..., 2, L, N] at the same level with scale
+    scale * scale; galois_keys_stack: int64[n_nonzero_steps, n_bundles, 2,
+    L_key, N] in sorted step order.
+
+    The rotated c0 rows are one ``galois`` launch that writes [..., R, L, N];
+    every R-term diagonal sum is one ``contract`` launch with the diagonal
+    encodings as per-coefficient weights.  fuse_moddown (default): the raw
+    key-switch accumulators are multiplied by extended-base encodings
+    (CKKSEncoder.encode_at_base) and summed, then mod-downed once; decrypts
+    equal to fuse_moddown=False, not bit-identical to it, and bit-identical
+    to the JAX package's step of the same form.
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    cd = context.get_context_data(parms_id)
+    limbs = cd.limb_constants
+    tool = cd.galois_tool
+    plan = KeySwitchPlan(context, parms_id)
+
+    steps = sorted(diagonals.keys())
+    rot_steps = [s for s in steps if s != 0]
+    elts = [tool.get_elt_from_step(s) for s in rot_steps]
+    # every diagonal encoded with one NTT launch per base
+    encoded = encoder.encode_stack([list(diagonals[s]) for s in steps], scale, parms_id)
+    plains = dict(zip(steps, encoded))
+    R = len(rot_steps)
+    if R:
+        rot_tabs = tool.ntt_tables(elts)                                  # [R, N]
+        ptc = encoded[len(steps) - R:].unsqueeze(0)                       # [1, R, L, N]
+        if fuse_moddown:
+            pte = encoder.encode_stack([list(diagonals[s]) for s in rot_steps], scale,
+                                       parms_id, plan.ext_moduli,
+                                       plan.ext_tables).unsqueeze(0)      # [1, R, n_ext, N]
+
+    def step(ct, galois_keys_stack):
+        ct = ct.contiguous()
+        c0 = ct[..., 0, :, :].contiguous()
+        acc = dyadic_product(ct, plains[0], limbs) if 0 in plains else None
+        if not R:
+            return acc
+        ct_k = compute_modup_digits(ct[..., 1, :, :], plan, True)        # hoisted once
+        a0, a1 = batched_rotated_inner_product(ct_k, rot_tabs, galois_keys_stack, plan)
+        rc = galois_permute(c0, rot_tabs)                                 # [..., R, L, N]
+        if fuse_moddown:
+            ext = plan.ext_limbs
+            raw0 = _contract(a0.unsqueeze(-4), pte, ext).squeeze(-3)
+            raw1 = _contract(a1.unsqueeze(-4), pte, ext).squeeze(-3)
+            ct_part = _contract(rc.unsqueeze(-4), ptc, limbs).squeeze(-3)
+            d0 = rescale_special(raw0, plan, is_ntt_output=True)
+            d1 = rescale_special(raw1, plan, is_ntt_output=True)
+            term = torch.stack([add_poly(ct_part, d0, limbs), d1], dim=-3)
+        else:
+            d0 = rescale_special(a0, plan, is_ntt_output=True)           # [..., R, L, N]
+            d1 = rescale_special(a1, plan, is_ntt_output=True)
+            x0 = add_poly(rc, d0, limbs)
+            term = torch.stack([_contract(x0.unsqueeze(-4), ptc, limbs).squeeze(-3),
+                                _contract(d1.unsqueeze(-4), ptc, limbs).squeeze(-3)], dim=-3)
+        return term if acc is None else add_poly(acc, term, limbs)
+
+    return step
+
+
+def build_ckks_matvec_bsgs(context: SealContext, diagonals, scale: float, encoder,
+                           parms_id=None, baby: int = None, device=None):
+    """Baby-step/giant-step encrypted matvec (Halevi-Shoup; the JAX
+    package's build_ckks_matvec_bsgs): k diagonals cost B-1 baby and G-1
+    giant key switches, with diag_d (*) rot(x, d) = rot(rot(diag_d, -gB)
+    (*) rot(x, b), gB) for d = gB + b, so y = sum_g rot_gB(S_g), S_g =
+    sum_b diag'_{g,b} (*) rot_b(x).
+
+    One hoisted mod-up feeds every baby rotation; each S_g (g >= 1) gets
+    its own special-prime mod-down, is giant-rotated (one paired
+    ``galois`` launch for all giants) and key-switched, and the giants'
+    raw accumulators are summed with S_0's for one final mod-down.  The
+    baby sums, the giant sums and the final sums are ``contract`` launches.
+    Decrypts equal to the rotation-by-rotation path, bit-identical to the
+    JAX package's step.
+
+    diagonals: {step d: slot values} (negative steps normalize to slots +
+    d); baby: B (default ceil(sqrt(#steps))).  Returns (fn, rot_steps):
+    fn(ct, galois_keys_stack) -> int64[..., 2, L, N] at the same level with
+    scale scale * scale; galois_keys_stack in `rot_steps` order (baby steps
+    then giant steps).
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    cd = context.get_context_data(parms_id)
+    limbs = cd.limb_constants
+    tool = cd.galois_tool
+    plan = KeySwitchPlan(context, parms_id)
+    slots = cd.parms.poly_modulus_degree // 2
+    dev = context.device
+
+    norm = {}
+    for s, v in diagonals.items():
+        ns = int(s) % slots
+        if ns in norm:
+            raise ValueError("diagonal steps collide modulo the slot count")
+        norm[ns] = v
+    diagonals = norm
+    steps = sorted(diagonals.keys())
+    if baby is None:
+        baby = max(1, int(np.ceil(np.sqrt(len(steps)))))
+    B = int(baby)
+    groups = {}                       # giant g -> {baby b: slot vector}
+    for s in steps:
+        g, b = divmod(s, B)
+        groups.setdefault(g, {})[b] = np.asarray(list(diagonals[s]), dtype=np.complex128)
+    giants = sorted(groups.keys())
+    babies = sorted({b for gd in groups.values() for b in gd})
+    baby_rot = [b for b in babies if b != 0]
+    giant_rot = [g * B for g in giants if g != 0]
+    rot_steps = baby_rot + giant_rot
+
+    babies_idx = {b: i for i, b in enumerate(babies)}
+    Bf, Br, G = len(babies), len(baby_rot), len(giants)
+    has_g0 = giants[0] == 0
+    n_ext, n_ct = plan.n_ext, plan.n_ct_rns
+    N = cd.parms.poly_modulus_degree
+    # the whole BSGS grid as dense stacks; absent (g, b) cells are zero
+    # plaintexts, which add exact zeros to every modular contraction
+    cells = [(gi, babies_idx[b], np.roll(vec, g * B)[:slots].tolist())   # rot(vec, -gB)
+             for gi, g in enumerate(giants) for b, vec in groups[g].items()]
+    gi_idx = torch.tensor([c[0] for c in cells], device=dev)
+    bi_idx = torch.tensor([c[1] for c in cells], device=dev)
+    vecs = [c[2] for c in cells]
+    pt_ct = torch.zeros((G, Bf, n_ct, N), dtype=torch.int64, device=dev)
+    pt_ext = torch.zeros((G, Bf, n_ext, N), dtype=torch.int64, device=dev)
+    pt_ct[gi_idx, bi_idx] = encoder.encode_stack(vecs, scale, parms_id)
+    pt_ext[gi_idx, bi_idx] = encoder.encode_stack(vecs, scale, parms_id, plan.ext_moduli,
+                                                  plan.ext_tables)
+    baby_tabs = tool.ntt_tables([tool.get_elt_from_step(b) for b in baby_rot]) if Br else None
+    rot_gi = [gi for gi, g in enumerate(giants) if g != 0]
+    giant_tabs = (tool.ntt_tables([tool.get_elt_from_step(giants[gi] * B) for gi in rot_gi])
+                  if rot_gi else None)
+    pte_rot = pt_ext[:, [babies_idx[b] for b in baby_rot]].contiguous() if Br else None
+    pt_b0 = pt_ct[:, babies_idx[0]].unsqueeze(1).contiguous() if 0 in babies_idx else None
+
+    def step(ct, galois_keys_stack):
+        ct = ct.contiguous()
+        c0 = ct[..., 0, :, :].contiguous()
+        c1 = ct[..., 1, :, :].contiguous()
+        ext = plan.ext_limbs
+        rows = [c0.unsqueeze(-3)] if 0 in babies_idx else []
+        if Br:
+            ct_k = compute_modup_digits(c1, plan, True)                  # hoisted once
+            a0, a1 = batched_rotated_inner_product(ct_k, baby_tabs, galois_keys_stack[:Br],
+                                                   plan)                 # [..., Br, n_ext, N]
+            rows.append(galois_permute(c0, baby_tabs))                   # [..., Br, L, N]
+        # S_g for all giants: the baby axis contracted once per plane
+        c0_rows = torch.cat(rows, dim=-3) if len(rows) > 1 else rows[0]
+        s0_ct = _contract(c0_rows.unsqueeze(-4), pt_ct, limbs)           # [..., G, L, N]
+        if pt_b0 is not None:
+            s1_ct = _contract(c1.unsqueeze(-3).unsqueeze(-4), pt_b0, limbs)
+        else:
+            s1_ct = torch.zeros_like(s0_ct)
+        if Br:
+            s0_raw = _contract(a0.unsqueeze(-4), pte_rot, ext)             # [..., G, n_ext, N]
+            s1_raw = _contract(a1.unsqueeze(-4), pte_rot, ext)
+
+        fin0_ct = fin1_ct = fin0_raw = fin1_raw = None
+        if has_g0:
+            # S_0 folds straight into the final accumulators
+            fin0_ct, fin1_ct = s0_ct[..., 0, :, :], s1_ct[..., 0, :, :]
+            if Br:
+                fin0_raw, fin1_raw = s0_raw[..., 0, :, :], s1_raw[..., 0, :, :]
+        if rot_gi:
+            # every rotated giant: one batched mod-down, one paired
+            # permutation, one batched key switch over the giant axis
+            gs = slice(1, None) if has_g0 else slice(None)
+            sg = torch.stack([s0_ct[..., gs, :, :], s1_ct[..., gs, :, :]], dim=-3)
+            if Br:
+                raw = torch.stack([s0_raw[..., gs, :, :], s1_raw[..., gs, :, :]], dim=-3)
+                sg = add_poly(sg, rescale_special(raw.contiguous(), plan,
+                                                  is_ntt_output=True), limbs)
+            rot = galois_permute(sg.reshape(sg.shape[:-3] + (2 * n_ct, N)), giant_tabs,
+                                 paired=True).reshape(sg.shape)       # [..., Gr, 2, L, N]
+            digits = compute_modup_digits(rot[..., 1, :, :], plan, True)
+            ga0, ga1 = keys_stack_inner_product(digits, galois_keys_stack[Br:], plan)
+            parts = [(rot[..., 0, :, :], fin0_ct, limbs), (ga0, fin0_raw, ext),
+                     (ga1, fin1_raw, ext)]
+            sums = []
+            for x, first, lim in parts:
+                tot = _sum_rows(x, lim)
+                sums.append(tot if first is None else add_poly(first.contiguous(), tot, lim))
+            fin0_ct, fin0_raw, fin1_raw = sums
+        out0, out1 = fin0_ct, fin1_ct
+        if fin0_raw is not None:
+            d = rescale_special(torch.stack([fin0_raw, fin1_raw], dim=-3), plan,
+                                is_ntt_output=True)
+            d0, d1 = d[..., 0, :, :], d[..., 1, :, :]
+            out0 = d0 if out0 is None else add_poly(out0.contiguous(), d0.contiguous(), limbs)
+            out1 = d1 if out1 is None else add_poly(out1.contiguous(), d1.contiguous(), limbs)
+        return torch.stack([out0, out1], dim=-3)
+
+    return step, rot_steps

@@ -58,6 +58,7 @@ KERNELS = {
     "galois": ("galois.cu", "gst_galois", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "behz": ("behz.cu", "gst_behz", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "scale_round": ("scale_round.cu", "gst_scale_round", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "mod_raise": ("mod_raise.cu", "gst_mod_raise", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 # kernel name -> the modes that a call names (see ``call``)

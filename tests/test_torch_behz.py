@@ -22,6 +22,7 @@ import gemini_seal_tpu_torch as T
 from gemini_seal_tpu_torch.ops import modops as tm
 from gemini_seal_tpu_torch.ops import rnsops as tr
 from gemini_seal_tpu_torch.ops.backend import to_numpy, to_tensor
+from torch_helpers import one_torch_thread  # noqa: F401
 
 N = 256
 BITS = [40] * 5

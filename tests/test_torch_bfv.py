@@ -24,6 +24,7 @@ from gemini_seal_tpu.models import pipelines as jp
 import gemini_seal_tpu_torch as T
 from gemini_seal_tpu_torch import convert
 from gemini_seal_tpu_torch.ops.backend import to_numpy, to_tensor
+from torch_helpers import one_torch_thread  # noqa: F401
 
 N = 256
 RINGS = {"config3": [40] * 5, "config1": [36, 36, 37]}

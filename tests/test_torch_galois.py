@@ -19,6 +19,7 @@ from gemini_seal_tpu_torch import convert
 from gemini_seal_tpu_torch.ops.backend import to_numpy, to_tensor
 from gemini_seal_tpu_torch.ops.galois import GaloisTool, galois_permute
 from gemini_seal_tpu_torch.utils.numth import get_primes
+from torch_helpers import one_torch_thread  # noqa: F401
 
 SEED = tuple(range(51, 59))
 BITS = [40, 30, 40]      # __graft_entry__.entry()'s ring

@@ -576,3 +576,105 @@ def test_keygen_encrypt_decrypt_n32768(card):
     out = enc.decode(T.Decryptor(ctx, kg.secret_key).decrypt(ct))
     assert cuda.LAUNCHES["ntt:large_ring"] >= 3
     assert np.max(np.abs(np.asarray(out) - v)) < 1e-4
+
+
+@pytest.mark.parametrize("n,L", [(128, 3), (4096, 21), (4096, 24)])
+def test_mod_raise_kernel(card, n, L):
+    """K8 against its plain version: random residues mod q0 and the boundary
+    residues 0, q0/2, q0/2 + 1 and q0 - 1, at the bootstrap's row shapes
+    ([2, 1, N] with no batch axis, and a batch of 3)."""
+    from gemini_seal_tpu_torch.modulus import Modulus
+    from gemini_seal_tpu_torch.ops.modraise import mod_raise_lift
+
+    mods = [Modulus(p) for p in get_primes(n, 59, 1) + get_primes(n, 45, L - 1)]
+    q0 = mods[0].value
+    p, r1, qm = (to_tensor([f(m) for m in mods], card)
+                 for f in (lambda m: m.value, lambda m: m.const_ratio[1], lambda m: q0 % m.value))
+    rng = np.random.default_rng(n + L)
+    for lead in ((2,), (3, 2)):
+        c = rng.integers(0, q0, size=lead + (1, n), dtype=np.uint64)
+        flat = c.reshape(-1)
+        flat[:4] = [0, q0 >> 1, (q0 >> 1) + 1, q0 - 1]
+        flat[-4:] = [q0 - 1, (q0 >> 1) + 1, q0 >> 1, 0]
+        x = to_tensor(c, card)
+        got, want = _both(mod_raise_lift, x, p, r1, qm, q0 >> 1)
+        assert got.shape == lead + (L, n) and torch.equal(got, want)
+        # row 0 is q0 itself: every residue comes back unchanged
+        assert torch.equal(got[..., 0, :], x[..., 0, :])
+
+
+@pytest.fixture(scope="module")
+def ckks8192():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 8192
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [50, 40, 40, 50]))
+    parms.set_random_seed(tuple(range(8)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none)
+    kg = T.KeyGenerator(ctx)
+    enc = T.CKKSEncoder(ctx)
+    v = np.random.default_rng(34).uniform(-1, 1, n // 2)
+    ct = T.Encryptor(ctx, kg.public_key()).encrypt(enc.encode(v.tolist(), 2.0 ** 40))
+    return ctx, kg, enc, v, torch.stack([ct.data] * 2)
+
+
+@pytest.mark.parametrize("form", ["fused", "unfused", "bsgs", "bsgs_baby3"])
+def test_matvec_matches_plain_path(ckks8192, form):
+    ctx, kg, enc, v, a = ckks8192
+    slots = v.size
+    M = np.random.default_rng(1).uniform(-0.5, 0.5, size=(8, 8))
+    diags = {d: [M[i % 8, (i + d) % 8] for i in range(slots)] for d in range(8)}
+    tool = ctx.first_context_data().galois_tool
+    if form.startswith("bsgs"):
+        step, steps = T.build_ckks_matvec_bsgs(ctx, diags, 2.0 ** 40, enc,
+                                               baby=3 if form == "bsgs_baby3" else None)
+    else:
+        step, steps = T.build_ckks_matvec(ctx, diags, 2.0 ** 40, enc,
+                                          fuse_moddown=form == "fused"), list(range(1, 8))
+    elts = tool.get_elts_from_steps(steps)
+    got, want = _both(step, a, kg.galois_keys(elts).stacked(*elts))
+    assert torch.equal(got, want)
+    out = enc.decode(T.Decryptor(ctx, kg.secret_key).decrypt(
+        T.Ciphertext(got[1].contiguous(), ctx.first_parms_id, True, 2.0 ** 80)))
+    want_mx = sum(np.asarray(vec) * np.roll(v, -d) for d, vec in diags.items())
+    assert np.max(np.abs(np.asarray(out) - want_mx)) < 1e-4
+
+
+def test_bootstrap_matches_plain_path(card):
+    """A whole refresh at N=1024 with two special primes (19 ciphertext
+    primes at the top: bundles of two and a short last one), radix 4:
+    kernels against the plain path bit for bit, and the decode within the
+    JAX test's 5e-6 (tests/test_bootstrap.py:293-303)."""
+    from gemini_seal_tpu_torch.evaluator import Evaluator
+    from gemini_seal_tpu_torch.models.bootstrap import build_ckks_bootstrap, plan_bootstrap_chain
+
+    n = 1024
+    bits, _, _ = plan_bootstrap_chain(n, radix=4, nsp=2, restored=1)
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, bits))
+    parms.set_n_special_primes(2)
+    parms.set_random_seed((1, 2, 3, 4, 5, 6, 7, 8))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none)
+    assert len(ctx.first_context_data().parms.coeff_modulus) == 19
+    kg = T.KeyGenerator(ctx)
+    enc = T.CKKSEncoder(ctx)
+    fn, pid, scale, steps, conj = build_ckks_bootstrap(ctx, 2.0 ** 45, enc,
+                                                       linear_mode="split", radix=4)
+    elts = ctx.first_context_data().galois_tool.get_elts_from_steps(steps)
+    gk = kg.galois_keys(elts + [conj])
+    rng = np.random.default_rng(13)
+    msg = rng.uniform(-1, 1, n // 2) + 1j * rng.uniform(-1, 1, n // 2)
+    ct = T.Encryptor(ctx, kg.public_key()).encrypt(enc.encode(msg.tolist(), 2.0 ** 45))
+    ev = Evaluator(ctx)
+    while ctx.get_context_data(ct.parms_id).next_context_data is not None:
+        ct = ev.mod_switch_to_next(ct)
+    cuda.reset_launches()
+    got, want = _both(fn, ct.data, gk.stacked(*elts), gk.stacked(conj),
+                      kg.relin_keys().stacked(2))
+    assert torch.equal(got, want) and cuda.LAUNCHES["mod_raise"] == 1
+    out = np.asarray(enc.decode(T.Decryptor(ctx, kg.secret_key).decrypt(
+        T.Ciphertext(got, pid, True, scale)), as_complex=True))
+    assert np.abs(out - msg).max() < 5e-6

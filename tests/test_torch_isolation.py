@@ -1,9 +1,11 @@
 """The PyTorch port stands alone.
 
 No file of gemini_seal_tpu_torch/ and no part of chip_smoke.py imports jax
-or gemini_seal_tpu; importing the port leaves jax out of sys.modules; with
-no card present an entry point called without ``device`` raises; and
-chip_smoke.py's CPU rehearsal runs end to end.
+or gemini_seal_tpu; importing the port, the bootstrap, EvalMod and the
+Evaluator included, leaves jax out of sys.modules; every kernel source
+(K1-K8) is registered and documented; with no card present an entry point
+called without ``device`` raises; and chip_smoke.py's CPU rehearsal runs
+its twelve paths end to end.
 """
 
 import ast
@@ -14,6 +16,7 @@ import sys
 
 import pytest
 import torch
+from torch_helpers import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "gemini_seal_tpu_torch")
@@ -64,7 +67,9 @@ def test_every_kernel_source_is_built_and_documented(source):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, gemini_seal_tpu_torch, gemini_seal_tpu_torch.convert; "
+    code = ("import sys, gemini_seal_tpu_torch, gemini_seal_tpu_torch.convert, "
+            "gemini_seal_tpu_torch.evaluator, gemini_seal_tpu_torch.models.bootstrap, "
+            "gemini_seal_tpu_torch.models.evalmod, gemini_seal_tpu_torch.ops.modraise; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gemini_seal_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -98,6 +103,19 @@ def test_entry_points_default_to_the_card():
     encoder = T.CKKSEncoder(ctx, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.build_ckks_poly_eval(ctx, [1.0, 0.5, 0.25], 2.0 ** 20, encoder)
+    from gemini_seal_tpu_torch.models.bootstrap import build_ckks_bootstrap
+    from gemini_seal_tpu_torch.models.evalmod import ChebyEvalMod
+
+    diags = {0: [0.5], 1: [0.25]}
+    cds = [ctx.first_context_data()]
+    for make in (lambda: T.build_ckks_matvec(ctx, diags, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_matvec_bsgs(ctx, diags, 2.0 ** 20, encoder),
+                 lambda: build_ckks_bootstrap(ctx, 2.0 ** 20, encoder),
+                 lambda: ChebyEvalMod(ctx, cds, [1], [None], [1], encoder, 0, 2.0 ** 20,
+                                      [0.0, 1.0], 1, False),
+                 lambda: T.Evaluator(ctx)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.Encryptor(ctx, kg.public_key())
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -129,7 +147,8 @@ def test_bfv_entry_points_default_to_the_card():
 
 
 def test_chip_smoke_cpu_rehearsal():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one torch thread, as in the rest of the port's CPU tests (torch_helpers.py)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "chip_smoke.py", "--cpu-rehearsal"], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
@@ -137,24 +156,29 @@ def test_chip_smoke_cpu_rehearsal():
     assert json.loads(lines[-1]) == {"ok": True, "rehearsal": "cpu"}
     kernels = json.loads(lines[-2])["kernels"]
     assert sorted(k["name"] for k in kernels) == ["behz", "contract", "elementwise", "galois",
-                                                  "ntt", "scale_round", "tensor_product"]
+                                                  "mod_raise", "ntt", "scale_round",
+                                                  "tensor_product"]
     forms = [json.loads(l)["form"] for l in lines if '"batch2"' in l]
     assert forms == ["multiply", "square", "sequential_multiply", "train_step", "rotate_many",
                      "rotate_many_prepermuted", "bfv_chain_fused_drop",
                      "bfv_chain_per_level_drop", "bfv_multiply_n8192", "bfv_square_n8192",
                      "bfv_multiply_n4096", "bfv_rotate_rows", "bfv_rotate_columns",
                      "bfv_rotate_many", "bfv_rotate_many_prepermuted",
-                     "ckks_mul_relin_rescale_n16384", "ckks_poly_eval_n32768", "n65536"]
+                     "ckks_mul_relin_rescale_n16384", "ckks_poly_eval_n32768", "n65536",
+                     "bootstrap_n4096", "dense8x8_n8192"]
     paths = [json.loads(l) for l in lines if '"main_path"' in l]
     assert [p["path"] for p in paths] == ["mul_relin_rescale", "train_step", "rotate_many",
                                           "bfv_mul_relin_chain", "bfv_mul_relin",
                                           "bfv_rotate_rows", "bfv_rotate_many",
                                           "ckks_mul_relin_rescale_n16384",
-                                          "ckks_poly_eval_n32768", "n65536"]
+                                          "ckks_poly_eval_n32768", "n65536",
+                                          "bootstrap_n4096", "dense8x8_n8192"]
     assert all(p["decode_exact"] for p in paths[3:7])
     assert paths[6]["key_forms_decode_equal"]
     assert paths[2]["max_abs_decode_diff_between_key_forms"] < 1e-5
     assert paths[8]["max_abs_decode_err"] < 1e-3 and paths[9]["ntt_round_trip_exact"]
+    assert paths[10]["max_err"] < 1e-6 and paths[10]["levels_restored"] == 3
+    assert paths[11]["max_abs_decode_err"] < 1e-4
 
 
 def test_chip_smoke_refuses_without_a_card():

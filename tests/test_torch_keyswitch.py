@@ -14,6 +14,7 @@ import gemini_seal_tpu_torch as T
 from gemini_seal_tpu.ops import keyswitch as jk
 from gemini_seal_tpu_torch.ops import keyswitch as tk
 from gemini_seal_tpu_torch.ops.backend import to_numpy, to_tensor
+from torch_helpers import one_torch_thread  # noqa: F401
 
 N = 256
 

@@ -16,6 +16,7 @@ from gemini_seal_tpu.ops import modops as jm
 from gemini_seal_tpu.utils.numth import get_primes
 from gemini_seal_tpu_torch.ops import modops as tm
 from gemini_seal_tpu_torch.ops.backend import to_numpy, to_tensor
+from torch_helpers import one_torch_thread  # noqa: F401
 
 U64_MAX = (1 << 64) - 1
 N = 512

@@ -18,6 +18,7 @@ from gemini_seal_tpu.ops import ntt as jn
 from gemini_seal_tpu.utils.numth import get_primes
 from gemini_seal_tpu_torch.ops import ntt as tn
 from gemini_seal_tpu_torch.ops.backend import to_numpy, to_tensor
+from torch_helpers import one_torch_thread  # noqa: F401
 
 BITS = [60, 50, 40]
 

@@ -17,6 +17,7 @@ import gemini_seal_tpu_torch as T
 from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale as jax_step
 from gemini_seal_tpu_torch import convert
 from gemini_seal_tpu_torch.ops.backend import to_numpy
+from torch_helpers import one_torch_thread  # noqa: F401
 
 SEED = tuple(range(71, 79))
 BITS = [50, 40, 40, 50]  # bench.py's chain, cut to N <= 1024

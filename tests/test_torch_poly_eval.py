@@ -19,6 +19,7 @@ import gemini_seal_tpu as J
 from gemini_seal_tpu.models import pipelines as jp
 import gemini_seal_tpu_torch as T
 from gemini_seal_tpu_torch.ops.backend import to_numpy, to_tensor
+from torch_helpers import one_torch_thread  # noqa: F401
 
 N = 512
 BITS = [59, 30, 30, 30, 59]

@@ -31,6 +31,7 @@ from gemini_seal_tpu_torch.ops.dyadic import LimbConstants, add_poly
 from gemini_seal_tpu_torch.ops.galois import GaloisTool, galois_permute
 from gemini_seal_tpu_torch.ops.keyswitch import KeySwitchPlan, switch_key
 from gemini_seal_tpu_torch.utils.numth import get_primes
+from torch_helpers import one_torch_thread  # noqa: F401
 
 N = 256
 STEPS = (1, 2, 3)

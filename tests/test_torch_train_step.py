@@ -20,6 +20,7 @@ import gemini_seal_tpu_torch as T
 from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale as jax_step
 from gemini_seal_tpu_torch.entry import _build
 from gemini_seal_tpu_torch.ops.backend import to_numpy
+from torch_helpers import one_torch_thread  # noqa: F401
 
 SEED = tuple(range(51, 59))
 BITS = [40, 30, 40]
