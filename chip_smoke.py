@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # small rings on the CPU, plain versions
 
-Twelve paths run, each driven once with every launch counter set to 0 just
+Sixteen paths run, each driven once with every launch counter set to 0 just
 before it and read just after it.  Three are CKKS, on bench.py's ring
 (N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
 seed range(71, 79), scale 2^40):
@@ -69,20 +69,44 @@ its rings and seed range(8):
   matrix M (seed 1) on x = 0.5 at scale 2^40, batch 16; decodes within
   1e-4 of M x.
 
+Four are the SEAL per-op API (examples/ex1-ex5 and ex8) through the port's
+Evaluator, DeviceEvaluator and IntegerEncoder at the examples' own rings,
+parms seed range(8), each example's own checks:
+
+- per_op_bfv_n4096: ex1 (BFV N=4096, bfv_default, t=1024: square,
+  relinearize, add_plain, multiply_plain by the monomial "4" on the
+  ``negacyclic`` kernel, multiply; the result must have the JAX package's
+  sha256, EX1, its noise budgets and decrypt 84), ex2's IntegerEncoder sum
+  (t=512, decodes -2) and BatchEncoder square, ex5's rotate_rows(3) (the
+  NAF fallback) and rotate_columns; then the rest of ops/dyadic.py on ex1's
+  tensors: the shift alone, the centred norm (``infty_norm``) and the
+  Barrett-64 reduction of unreduced sums (``elementwise`` reduce64);
+- per_op_bfv_n8192_levels: ex3 (N=8192, [50, 30, 30, 50, 50]), two squares
+  and modulus switches; budgets 132 -> 50, degree 8, EX3's sha256;
+- per_op_ckks: ex2's CKKS square + rescale (N=4096), ex4's polynomial
+  (N=8192, three special primes: multiply_plain, multiply, rescale,
+  mod_switch_to, a forced scale, add, add_plain), ex5's rotate_vector(2)
+  and complex_conjugate (N=8192, the default Galois keys);
+- device_evaluator_n8192: ex8's three tiers at bench.py's ring (the
+  Evaluator, the DeviceEvaluator, the train step at batch 8), equal bit for
+  bit and to EX8's sha256, and DeviceEvaluator.multiply_relin_rescale.
+
 The script
 
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
-2. builds the eight kernels (nvcc, one process each, in parallel) and
+2. builds the ten kernels (nvcc, one process each, in parallel) and
    prints each one's -Xptxas -v summary;
-3. drives the twelve paths; as each kernel call happens it
+3. drives the sixteen paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
    launches of the check are taken off the counters), and times each
    call of a path's step both ways with
    CUDA events beside the least time the card could take for the same
    work (and, for ``galois``, beside torch.index_select / torch.gather,
-   for ``mod_raise`` beside torch.remainder); in the refresh, whose step
-   repeats each call shape many times, each distinct call is timed once;
+   for ``mod_raise`` and ``elementwise`` reduce64 beside torch.remainder,
+   for ``negacyclic`` beside torch.roll + torch.where, for ``infty_norm``
+   beside torch.amax); in the refresh and the per-op paths, whose steps
+   repeat call shapes, each distinct call is timed once;
    ``scale_round``, which runs in encryption and decryption only, is timed
    at those calls; a kernel's modes (the large-ring NTT, the signed and
    paired Galois permutations, the broadcast contraction) are rows of
@@ -93,7 +117,9 @@ The script
 6. times each step at its full batch (ops/s or rotations/s, and the NTT
    rates of configs 4 and N=65536), the two key forms of each hoisted
    rotation in turns, and profiles each (device time by kernel, device
-   busy share), with the recorder removed;
+   busy share), with the recorder removed; then each op of the per-op API
+   (median host ms over 20 waited calls, device ms and busy share) and
+   ex8's three tiers per ciphertext;
 7. prints the kernels line and, last, the result line.
 
 Any mismatch raises and the script exits non-zero; it exits non-zero with
@@ -105,6 +131,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -125,7 +152,7 @@ IMAD_SHOUP = 10
 IMAD_MAC = 7
 IMAD_BARRETT64 = 7
 ELEMENTWISE_MULMODS = {"add": 0, "sub": 0, "neg": 0, "mul": 1, "muladd": 1,
-                       "addmul": 1, "barrett64": 0, "submul": 1}
+                       "addmul": 1, "barrett64": 0, "submul": 1, "reduce64": 0}
 
 # the kernels (and kernel modes, "kernel:mode") each path's step must launch
 PATH_KERNELS = {
@@ -145,10 +172,17 @@ PATH_KERNELS = {
     "bootstrap_n4096": ("ntt", "tensor_product", "contract", "elementwise", "galois",
                         "mod_raise"),
     "dense8x8_n8192": ("ntt", "contract", "elementwise", "galois"),
+    "per_op_bfv_n4096": ("ntt", "tensor_product", "contract", "elementwise", "behz",
+                         "scale_round", "galois:signed", "negacyclic:mono_mul",
+                         "negacyclic:shift", "infty_norm", "elementwise:reduce64"),
+    "per_op_bfv_n8192_levels": ("ntt", "tensor_product", "contract", "elementwise", "behz"),
+    "per_op_ckks": ("ntt", "tensor_product", "contract", "elementwise", "galois"),
+    "device_evaluator_n8192": ("ntt", "tensor_product", "contract", "elementwise", "galois"),
 }
 # paths whose step repeats a call shape many times: each distinct call is
 # timed once and its time counted for every call of that shape
-TIME_ONCE = ("bootstrap_n4096",)
+TIME_ONCE = ("bootstrap_n4096", "per_op_bfv_n4096", "per_op_bfv_n8192_levels", "per_op_ckks",
+             "device_evaluator_n8192")
 
 # bench_all.py's bootstrap cell (bench_all.py:445-508) run by the JAX package
 # eagerly on the CPU (tests/test_torch_bootstrap.py::test_bench_all_cell_digests
@@ -162,6 +196,21 @@ BOOTSTRAP_N4096 = {
     "levels_restored": 3,
     "levels_consumed": 18,
 }
+# The SEAL per-op API's flows run by the JAX package's host Evaluator on the
+# CPU (parms seed range(8)): the sha256 of the final ciphertext's u64
+# residues, the noise budgets along the way and what it decrypts to.
+# EX1: examples/ex1_bfv_basics.py (BFV N=4096, bfv_default, t=1024), budgets
+# of x, x^2+1, (x+1)^2 and the result; EX3: examples/ex3_levels.py (N=8192,
+# [50, 30, 30, 50, 50], t=1032193), budgets fresh, squared, switched, squared
+# and switched again; EX8: examples/ex8_device_serving.py's chain at
+# bench.py's ring (N=8192, [50, 40, 40, 50], SecLevelType.none), vals 0.1 i
+# for i < 16 at 2^40, Galois keys for step 1.
+EX1 = {"sha256": "6dbc391c48d4e7928573da2732e83014fb96dcd53627fa40c22ab840ef34d37c",
+       "budgets": [55, 33, 33, 10], "decrypts": 84}
+EX3 = {"sha256": "583f0523a09df9fa4371332e912aefe52794564b702aa2c6f1901f5b5d45cd82",
+       "budgets": [132, 100, 82, 50], "degree": 8}
+EX8 = {"sha256": "27c348c9e4ef004a148848d73553eb192a24255696a54f5bfd2c94edb13bdee6",
+       "decodes": [0.01, 0.05, 0.13, 0.25]}
 # ... and the kernels each BFV path's encryption and decryption must launch
 PHASE_KERNELS = {"encode_encrypt": ("scale_round",), "decrypt_decode": ("scale_round",)}
 
@@ -192,7 +241,7 @@ class Recorder:
 
     def __init__(self, check):
         from gemini_seal_tpu_torch.models import pipelines
-        from gemini_seal_tpu_torch.ops import cuda, galois, modops, modraise, ntt, rnsops
+        from gemini_seal_tpu_torch.ops import cuda, dyadic, galois, modops, modraise, ntt, rnsops
 
         kernel_of = {ntt.ntt_forward_lazy: "ntt", ntt.ntt_forward: "ntt",
                      ntt.ntt_inverse_lazy: "ntt", ntt.ntt_inverse: "ntt",
@@ -202,7 +251,10 @@ class Recorder:
                      galois.galois_permute: "galois",
                      rnsops.behz: "behz",
                      rnsops.scale_round: "scale_round",
-                     modraise.mod_raise_lift: "mod_raise"}
+                     modraise.mod_raise_lift: "mod_raise",
+                     dyadic.negacyclic_shift_poly: "negacyclic",
+                     dyadic.negacyclic_mono_mul_poly: "negacyclic",
+                     dyadic.poly_infty_norm: "infty_norm"}
         self.check = check
         self.launches = cuda.LAUNCHES
         self.path = None
@@ -426,6 +478,13 @@ def work(kernel, fn_name, args, kwargs, result):
             ops = (out.shape[-1] + out.numel()) * (IMAD_MAC + IMAD_BARRETT128)
     elif kernel == "mod_raise":
         ops = outs[0].numel() * IMAD_BARRETT64  # one Barrett-64 per output
+    elif kernel == "negacyclic":
+        # a permutation with signs; the monomial's mul_mod per output
+        ops = outs[0].numel() * (IMAD_MULMOD if fn_name == "negacyclic_mono_mul_poly" else 0)
+    elif kernel == "infty_norm":
+        ops = 0  # compares and subtracts: bytes only
+    elif args[0] == "reduce64":
+        ops = outs[0].numel() * IMAD_BARRETT64
     else:
         ops = outs[0].numel() * ELEMENTWISE_MULMODS[args[0]] * IMAD_MULMOD
     return nbytes, ops
@@ -456,6 +515,30 @@ def remainder_call(torch, x, p, ratio1, q0_mod_p, half):
     fix, which no one call computes)."""
     pc = p.reshape(-1, 1)
     return lambda: torch.remainder(x, pc)
+
+
+def negacyclic_call(torch, a, shift, limbs):
+    """The PyTorch calls nearest to negacyclic_shift_poly: torch.roll and
+    torch.where with neg_mod's p - a (the permutation and the signs; the
+    monomial's multiply, which no PyTorch call computes mod p, left out)."""
+    n = a.shape[-1]
+    shift %= 2 * n
+    rot = shift % n
+    wrapped = torch.arange(n, device=a.device) < rot
+    if (shift // n) % 2:
+        wrapped = ~wrapped
+    p = limbs.p
+
+    def call():
+        r = torch.roll(a, rot, dims=-1)
+        return torch.where(wrapped & (r != 0), p - r, r)
+    return call
+
+
+def infty_norm_call(torch, a, limbs):
+    """torch.amax of the centred magnitude (one torch.where before it)."""
+    p = limbs.p
+    return lambda: torch.amax(torch.where(a > (p >> 1), p - a, a), dim=-1)
 
 
 def steady(torch, fn, count: int):
@@ -577,6 +660,20 @@ def main(argv=None) -> int:
             lib = remainder_call(torch, *cargs, **ckw)
             # the remainder is the lift wherever the input is not negative
             if not bool(((lib() == result) | (cargs[0] > cargs[4])).all()):
+                raise AssertionError(f"{label}: torch.remainder differs from the kernel")
+        if kernel == "negacyclic":
+            shift = cargs[2] if fn.__name__ == "negacyclic_mono_mul_poly" else cargs[1]
+            lib = negacyclic_call(torch, cargs[0], shift, cargs[-1])
+            if fn.__name__ == "negacyclic_shift_poly" and not torch.equal(lib(), result):
+                raise AssertionError(f"{label}: torch.roll + torch.where differ from the kernel")
+        if kernel == "infty_norm":
+            lib = infty_norm_call(torch, *cargs)
+            if not torch.equal(lib(), result):
+                raise AssertionError(f"{label}: torch.amax differs from the kernel")
+        if kernel == "elementwise" and cargs[0] == "reduce64":
+            pc = cargs[2]
+            lib = (lambda x=cargs[1]: torch.remainder(x, pc))
+            if not torch.equal(lib(), result):
                 raise AssertionError(f"{label}: torch.remainder differs from the kernel")
         if not rehearsal and key in timed_once:
             ms, plain_ms, lib_ms = timed_once[key]
@@ -1094,6 +1191,273 @@ def main(argv=None) -> int:
     end("dense8x8_n8192", t0, per_step, out_shape=list(out8.shape), max_abs_decode_err=err8)
     if not err8 < 1e-4:
         raise AssertionError(f"dense8x8_n8192 decodes {err8} from M x")
+    # 3m-p. the SEAL per-op API: examples/ex1-ex5 and ex8 through the port's
+    # Evaluator, DeviceEvaluator and IntegerEncoder, each at its example's ring
+    # (the rehearsal: N=256); keygen in each example's order, parms seed range(8)
+    from gemini_seal_tpu_torch.ops import dyadic as dyadic_ops
+
+    def per_op_context(scheme, n_c, coeff_modulus, t=None, nsp=1, sec=T.SecLevelType.tc128):
+        parms = T.EncryptionParameters(scheme)
+        parms.set_poly_modulus_degree(n_c)
+        parms.set_n_special_primes(nsp)
+        parms.set_coeff_modulus(coeff_modulus)
+        if t is not None:
+            parms.set_plain_modulus(t)
+        parms.set_random_seed(tuple(range(8)))
+        return T.SealContext(parms, sec_level=T.SecLevelType.none if rehearsal else sec,
+                             device=device)
+
+    def digest(ct):
+        return hashlib.sha256(to_numpy(ct.data).tobytes()).hexdigest()
+
+    def hex_plain(h):
+        return T.Plaintext.from_hex(h, device=device)
+
+    n_e = 256 if rehearsal else 4096
+
+    def bfv_default(n_c):
+        return T.CoeffModulus.create(n_c, [40, 40, 40]) if rehearsal else T.CoeffModulus.bfv_default(n_c)
+
+    # 3m. per_op_bfv_n4096: ex1, ex2's IntegerEncoder and BatchEncoder demos,
+    # ex5's BFV rotations (ex2's batching context is ex5's: bfv_default,
+    # PlainModulus.batching(4096, 20), one special prime)
+    t0 = begin("per_op_bfv_n4096")
+    set_phase("keygen")
+    ctx_e1 = per_op_context(T.SchemeType.BFV, n_e, bfv_default(n_e), 1024)
+    kg_e1 = T.KeyGenerator(ctx_e1, device=device)
+    pk_e1, rk_e1 = kg_e1.public_key(), kg_e1.relin_keys()
+    enc_e1 = T.Encryptor(ctx_e1, pk_e1, device=device)
+    ev_e1 = T.Evaluator(ctx_e1, device=device)
+    dec_e1 = T.Decryptor(ctx_e1, kg_e1.secret_key, device=device)
+    ctx_ei = per_op_context(T.SchemeType.BFV, n_e, bfv_default(n_e), 512)
+    kg_ei = T.KeyGenerator(ctx_ei, device=device)
+    enc_ei = T.Encryptor(ctx_ei, kg_ei.public_key(), device=device)
+    dec_ei = T.Decryptor(ctx_ei, kg_ei.secret_key, device=device)
+    ev_ei = T.Evaluator(ctx_ei, device=device)
+    int_enc = T.IntegerEncoder(ctx_ei, device=device)
+    ctx_eb = per_op_context(T.SchemeType.BFV, n_e, bfv_default(n_e),
+                            T.PlainModulus.batching(n_e, 20))
+    kg_eb = T.KeyGenerator(ctx_eb, device=device)
+    enc_eb = T.Encryptor(ctx_eb, kg_eb.public_key(), device=device)
+    dec_eb = T.Decryptor(ctx_eb, kg_eb.secret_key, device=device)
+    ev_eb = T.Evaluator(ctx_eb, device=device)
+    be_eb = T.BatchEncoder(ctx_eb, device=device)
+    rk_eb, gk_eb = kg_eb.relin_keys(), kg_eb.galois_keys()
+    keygen_done("per_op_bfv_n4096", t0)
+    set_phase("encode_encrypt")
+    x_e1 = enc_e1.encrypt(hex_plain("6"))
+    c_ei = [enc_ei.encrypt(int_enc.encode(v)) for v in (5, -7)]
+    row_eb = be_eb.slot_count // 2
+    mat_eb = [1, 2, 3, 4] + [0] * (be_eb.slot_count - 4)
+    ct_eb = enc_eb.encrypt(be_eb.encode(mat_eb))
+    limbs_e1 = ctx_e1.first_context_data().limb_constants
+    set_phase("step")
+
+    def ex1_ops(ev, x, rk):
+        a = ev.add_plain(ev.relinearize(ev.square(x), rk), hex_plain("1"))
+        b = ev.relinearize(ev.square(ev.add_plain(x, hex_plain("1"))), rk)
+        r = ev.relinearize(ev.multiply(ev.multiply_plain(a, hex_plain("4")), b), rk)
+        return a, b, r
+
+    def per_op_bfv():
+        a, b, r = ex1_ops(ev_e1, x_e1, rk_e1)
+        out = {"ex1": (x_e1, a, b, r), "int_sum": ev_ei.add(*c_ei),
+               "batch_square": ev_eb.relinearize(ev_eb.square(ct_eb), rk_eb),
+               "rows3": ev_eb.rotate_rows(ct_eb, 3, gk_eb),
+               "columns": ev_eb.rotate_columns(ct_eb, gk_eb)}
+        # the rest of ops/dyadic.py on ex1's tensors: the shift alone by N + 3,
+        # the centred norm of the result, Barrett-64 of the unreduced sums
+        out["shifted"] = dyadic_ops.negacyclic_shift_poly(r.data, n_e + 3, limbs_e1)
+        out["norm"] = dyadic_ops.poly_infty_norm(r.data, limbs_e1)
+        out["reduced"] = dyadic_ops.modulo_poly_coeffs(r.data + b.data, limbs_e1)
+        return out
+
+    res_e, per_step = count_step(per_op_bfv)
+    set_phase("decrypt_decode")
+    x_e1, a_e1, b_e1, r_e1 = res_e["ex1"]
+    budgets_e1 = [dec_e1.invariant_noise_budget(c) for c in res_e["ex1"]]
+    got_e1 = int(to_numpy(dec_e1.decrypt(r_e1).data)[0])
+    int_sum = int_enc.decode(dec_ei.decrypt(res_e["int_sum"]))
+    sq_eb = be_eb.decode(dec_eb.decrypt(res_e["batch_square"]))
+    rows3 = be_eb.decode(dec_eb.decrypt(res_e["rows3"]))
+    cols = be_eb.decode(dec_eb.decrypt(res_e["columns"]))
+    back = dyadic_ops.negacyclic_shift_poly(res_e["shifted"], n_e - 3, limbs_e1)
+    r_np = to_numpy(r_e1.data).astype(object)
+    mods_e1 = [m.value for m in ctx_e1.first_context_data().parms.coeff_modulus]
+    norm_want = [[max(min(int(v), p_ - int(v)) for v in r_np[c, l]) for l, p_ in enumerate(mods_e1)]
+                 for c in range(r_np.shape[0])]
+    sums = (r_np + to_numpy(b_e1.data).astype(object))
+    reduce_want = [[[int(v) % p_ for v in sums[c, l]] for l, p_ in enumerate(mods_e1)]
+                   for c in range(sums.shape[0])]
+    checks_e = {
+        "ex1_decrypts": got_e1 == EX1["decrypts"],
+        "ex1_budgets": budgets_e1 == EX1["budgets"] if not rehearsal else budgets_e1[-1] > 0,
+        "ex1_sha256": rehearsal or digest(r_e1) == EX1["sha256"],
+        "ex2_integer_sum": int_sum == -2,
+        "ex2_batch_square": sq_eb[:4] == [1, 4, 9, 16],
+        "ex5_rotate_rows_3": rows3[0] == 4 and rows3[row_eb - 3] == 1,
+        "ex5_rotate_columns": cols[row_eb] == 1 and cols[row_eb + 1] == 2,
+        "shift_round_trip": bool(torch.equal(back, r_e1.data)),
+        "norm": to_numpy(res_e["norm"]).astype(object).tolist() == norm_want,
+        "reduce64": to_numpy(res_e["reduced"]).astype(object).tolist() == reduce_want,
+    }
+    end("per_op_bfv_n4096", t0, per_step, n=n_e, ex1_budgets=budgets_e1,
+        ex1_sha256=digest(r_e1), ex1_decrypts=got_e1, ex2_integer_sum=int_sum, checks=checks_e)
+    if not all(checks_e.values()):
+        raise AssertionError(f"per_op_bfv_n4096: {checks_e}")
+
+    # 3n. per_op_bfv_n8192_levels: ex3, the modulus-switching chain
+    n_e3 = 256 if rehearsal else 8192
+    t0 = begin("per_op_bfv_n8192_levels")
+    set_phase("keygen")
+    ctx_e3 = per_op_context(T.SchemeType.BFV, n_e3,
+                            T.CoeffModulus.create(n_e3, [50, 30, 30, 50, 50]), 1032193)
+    kg_e3 = T.KeyGenerator(ctx_e3, device=device)
+    enc_e3 = T.Encryptor(ctx_e3, kg_e3.public_key(), device=device)
+    dec_e3 = T.Decryptor(ctx_e3, kg_e3.secret_key, device=device)
+    ev_e3 = T.Evaluator(ctx_e3, device=device)
+    rk_e3 = kg_e3.relin_keys()
+    keygen_done("per_op_bfv_n8192_levels", t0)
+    set_phase("encode_encrypt")
+    ct_e3 = enc_e3.encrypt(hex_plain("5x^2 + 3x^1 + 1"))
+    set_phase("step")
+
+    def per_op_levels():
+        sq = ev_e3.relinearize(ev_e3.square(ct_e3), rk_e3)
+        sw = ev_e3.mod_switch_to_next(sq)
+        return sq, sw, ev_e3.mod_switch_to_next(ev_e3.relinearize(ev_e3.square(sw), rk_e3))
+
+    (sq_e3, sw_e3, sw2_e3), per_step = count_step(per_op_levels)
+    set_phase("decrypt_decode")
+    budgets_e3 = [dec_e3.invariant_noise_budget(c) for c in (ct_e3, sq_e3, sw_e3, sw2_e3)]
+    degree_e3 = dec_e3.decrypt(sw2_e3).significant_coeff_count() - 1
+    checks_e3 = {"degree": degree_e3 == EX3["degree"],
+                 "budgets": budgets_e3 == EX3["budgets"] if not rehearsal else budgets_e3[-1] > 0,
+                 "sha256": rehearsal or digest(sw2_e3) == EX3["sha256"]}
+    end("per_op_bfv_n8192_levels", t0, per_step, n=n_e3, budgets=budgets_e3,
+        sha256=digest(sw2_e3), degree=degree_e3, checks=checks_e3)
+    if not all(checks_e3.values()):
+        raise AssertionError(f"per_op_bfv_n8192_levels: {checks_e3}")
+
+    # 3o. per_op_ckks: ex2's CKKS square + rescale (N=4096, [40, 30, 30], 2^30),
+    # ex4's pi x^3 + 0.4 x + 1 (N=8192, three special primes, [55, 40, 40, 50,
+    # 50, 50], 2^40), ex5's CKKS rotation and conjugation (N=8192, [40, 40, 40,
+    # 40, 50, 50], the default Galois keys)
+    n_c2, n_c8 = (256, 256) if rehearsal else (4096, 8192)
+    t0 = begin("per_op_ckks")
+    set_phase("keygen")
+
+    def ckks_example(n_c, bits, nsp, sec):
+        c = per_op_context(T.SchemeType.CKKS, n_c, T.CoeffModulus.create(n_c, bits), nsp=nsp,
+                           sec=sec)
+        k = T.KeyGenerator(c, device=device)
+        return (c, k, T.Encryptor(c, k.public_key(), device=device),
+                T.Decryptor(c, k.secret_key, device=device), T.Evaluator(c, device=device),
+                T.CKKSEncoder(c, device=device))
+
+    ctx_c2, kg_c2, enc_c2, dec_c2, ev_c2, cod_c2 = ckks_example(n_c2, [40, 30, 30], 1,
+                                                                  T.SecLevelType.tc128)
+    rk_c2 = kg_c2.relin_keys()
+    ctx_c4, kg_c4, enc_c4, dec_c4, ev_c4, cod_c4 = ckks_example(
+        n_c8, [55, 40, 40, 50, 50, 50], 3, T.SecLevelType.none)
+    rk_c4 = kg_c4.relin_keys()
+    ctx_c5, kg_c5, enc_c5, dec_c5, ev_c5, cod_c5 = ckks_example(
+        n_c8, [40, 40, 40, 40, 50, 50], 1, T.SecLevelType.none)
+    gk_c5 = kg_c5.galois_keys()
+    keygen_done("per_op_ckks", t0)
+    set_phase("encode_encrypt")
+    vals_c2 = [0.0, 1.1, 2.2, 3.3]
+    ct_c2 = enc_c2.encrypt(cod_c2.encode(vals_c2, 2.0 ** 30))
+    scale_c4 = 2.0 ** 40
+    xs_c4 = [i / cod_c4.slot_count for i in range(cod_c4.slot_count)]
+    x_c4 = enc_c4.encrypt(cod_c4.encode(xs_c4, scale_c4))
+    pi_c4, coeff_c4 = cod_c4.encode(3.14159265, scale_c4), cod_c4.encode(0.4, scale_c4)
+    vals_c5 = [i * 0.01 for i in range(cod_c5.slot_count)]
+    ct_c5 = enc_c5.encrypt(cod_c5.encode(vals_c5, 2.0 ** 30))
+    set_phase("step")
+
+    def per_op_ckks():
+        sq = ev_c2.rescale_to_next(ev_c2.relinearize(ev_c2.square(ct_c2), rk_c2))
+        x_sq = ev_c4.rescale_to_next(ev_c4.relinearize(ev_c4.square(x_c4), rk_c4))
+        pi_x = ev_c4.rescale_to_next(ev_c4.multiply_plain(x_c4, pi_c4))
+        x3 = ev_c4.rescale_to_next(ev_c4.relinearize(ev_c4.multiply(x_sq, pi_x), rk_c4))
+        c_x = ev_c4.mod_switch_to(ev_c4.rescale_to_next(ev_c4.multiply_plain(x_c4, coeff_c4)),
+                                  x3.parms_id)
+        forced = float(2.0 ** round(math.log2(x3.scale)))
+        x3.scale = forced
+        c_x.scale = forced
+        one = cod_c4.encode(1.0, forced, x3.parms_id)
+        total = ev_c4.add_plain(ev_c4.add(x3, c_x), one)
+        return (sq, total, ev_c5.rotate_vector(ct_c5, 2, gk_c5),
+                ev_c5.complex_conjugate(ct_c5, gk_c5))
+
+    (sq_c2, total_c4, rot_c5, conj_c5), per_step = count_step(per_op_ckks)
+    set_phase("decrypt_decode")
+    out_c2 = cod_c2.decode(dec_c2.decrypt(sq_c2))
+    err_c2 = max(abs(o - v * v) for o, v in zip(out_c2[:4], vals_c2))
+    out_c4 = cod_c4.decode(dec_c4.decrypt(total_c4))
+    err_c4 = max(abs(o - (3.14159265 * v ** 3 + 0.4 * v + 1.0)) for o, v in zip(out_c4, xs_c4))
+    rot_out = cod_c5.decode(dec_c5.decrypt(rot_c5))
+    conj_out = cod_c5.decode(dec_c5.decrypt(conj_c5))
+    checks_c = {"ex2_square": err_c2 < 1e-2, "ex4_polynomial": err_c4 < 1e-2,
+                "ex5_rotate_vector_2": abs(rot_out[0] - vals_c5[2]) < 1e-3,
+                "ex5_conjugate": abs(conj_out[1] - vals_c5[1]) < 1e-3}
+    end("per_op_ckks", t0, per_step, ex2_max_err=err_c2, ex4_max_err=err_c4,
+        ex5_rotate_err=abs(rot_out[0] - vals_c5[2]), checks=checks_c)
+    if not all(checks_c.values()):
+        raise AssertionError(f"per_op_ckks: {checks_c}")
+
+    # 3p. device_evaluator_n8192: ex8's three tiers at bench.py's ring, which
+    # must agree bit for bit: the Evaluator's multiply, relinearize, rescale,
+    # rotate by one and add; the same on the DeviceEvaluator; the train step
+    # (build_ckks_train_step) at batch 8 (the rehearsal: 2)
+    n_d = 256 if rehearsal else 8192
+    b_d = 2 if rehearsal else 8
+    t0 = begin("device_evaluator_n8192")
+    set_phase("keygen")
+    ctx_d = per_op_context(T.SchemeType.CKKS, n_d, T.CoeffModulus.create(n_d, [50, 40, 40, 50]),
+                           sec=T.SecLevelType.none)
+    kg_d = T.KeyGenerator(ctx_d, device=device)
+    enc_d = T.Encryptor(ctx_d, kg_d.public_key(), device=device)
+    dec_d = T.Decryptor(ctx_d, kg_d.secret_key, device=device)
+    cod_d = T.CKKSEncoder(ctx_d, device=device)
+    rk_d, gk_d = kg_d.relin_keys(), kg_d.galois_keys_from_steps([1])
+    elt_d = ctx_d.first_context_data().galois_tool.get_elt_from_step(1)
+    rk_d2, gk_d1 = rk_d.stacked(2), gk_d.stacked(elt_d)
+    ev_d, dev_d = T.Evaluator(ctx_d, device=device), T.DeviceEvaluator(ctx_d, device=device)
+    keygen_done("device_evaluator_n8192", t0)
+    set_phase("encode_encrypt")
+    vals_d = [0.1 * i for i in range(16)]
+    ct_d = enc_d.encrypt(cod_d.encode(vals_d, 2.0 ** 40))
+    batch_d = ct_d.data.expand((b_d,) + tuple(ct_d.data.shape)).contiguous()
+    train_d = T.build_ckks_train_step(ctx_d, rotate_steps=1, device=device)
+    set_phase("step")
+
+    def ex8_chain(ev, ct):
+        prod = ev.rescale_to_next(ev.relinearize(ev.multiply(ct, ct), rk_d))
+        return ev.add(prod, ev.rotate_vector(prod, 1, gk_d))
+
+    def per_op_tiers():
+        return (ex8_chain(ev_d, ct_d), ex8_chain(dev_d, dev_d.put(ct_d)),
+                train_d(batch_d, batch_d, rk_d2, gk_d1),
+                dev_d.multiply_relin_rescale(ct_d, ct_d, rk_d))
+
+    (host_d, dev_out_d, fused_d, mrr_d), per_step = count_step(per_op_tiers)
+    set_phase("decrypt_decode")
+    got_d = cod_d.decode(dec_d.decrypt(host_d))
+    mrr_got = cod_d.decode(dec_d.decrypt(mrr_d))
+    checks_d = {
+        "device_equals_host": bool(torch.equal(dev_out_d.data, host_d.data)),
+        "train_step_equals_host": all(bool(torch.equal(fused_d[b], host_d.data))
+                                      for b in (0, b_d - 1)),
+        "sha256": rehearsal or digest(host_d) == EX8["sha256"],
+        "decodes": max_err(got_d[:4], EX8["decodes"]) < 1e-3,
+        "multiply_relin_rescale": max_err(mrr_got[:16], [v * v for v in vals_d]) < 1e-4,
+    }
+    end("device_evaluator_n8192", t0, per_step, sha256=digest(host_d), decodes=got_d[:4],
+        batch=b_d, checks=checks_d)
+    if not all(checks_d.values()):
+        raise AssertionError(f"device_evaluator_n8192: {checks_d}")
     recorder.remove()
     for kernel, row in rows.items():
         emit({"phase": "kernel_check", "kernel": kernel, "equal": True, **row})
@@ -1315,6 +1679,65 @@ def main(argv=None) -> int:
         emit({"phase": "memory", "peak_device_bytes_with_checks_by_path":
               {p: v["peak_device_bytes_with_checks"] for p, v in paths.items()}, "card": card})
 
+    # 6b. the per-op API, op by op, as a user calls it: median host ms over 20
+    # calls, each waited for, the launches of one call, and device ms and busy
+    # share from torch.profiler; then ex8's three tiers per ciphertext
+    if not rehearsal:
+        x_d = ct_d
+        m_d = ev_d.multiply(x_d, x_d)
+        r_d = ev_d.relinearize(m_d, rk_d)
+        p_d = ev_d.rescale_to_next(r_d)
+        four = hex_plain("4")
+        m_e1 = ev_e1.multiply(a_e1, b_e1)
+        per_ops = [
+            ("ckks_n8192", "multiply", lambda: ev_d.multiply(x_d, x_d)),
+            ("ckks_n8192", "square", lambda: ev_d.square(x_d)),
+            ("ckks_n8192", "relinearize", lambda: ev_d.relinearize(m_d, rk_d)),
+            ("ckks_n8192", "rescale_to_next", lambda: ev_d.rescale_to_next(r_d)),
+            ("ckks_n8192", "rotate_vector", lambda: ev_d.rotate_vector(p_d, 1, gk_d)),
+            ("ckks_n8192", "add", lambda: ev_d.add(p_d, p_d)),
+            ("ckks_n8192", "DeviceEvaluator.multiply_relin_rescale",
+             lambda: dev_d.multiply_relin_rescale(x_d, x_d, rk_d)),
+            ("bfv_n4096", "multiply_plain (monomial)", lambda: ev_e1.multiply_plain(a_e1, four)),
+            ("bfv_n4096", "multiply", lambda: ev_e1.multiply(a_e1, b_e1)),
+            ("bfv_n4096", "square", lambda: ev_e1.square(x_e1)),
+            ("bfv_n4096", "relinearize", lambda: ev_e1.relinearize(m_e1, rk_e1)),
+            ("bfv_n4096", "add_plain", lambda: ev_e1.add_plain(x_e1, hex_plain("1"))),
+        ]
+
+        def median_ms(fn, calls=20):
+            fn()
+            sync()
+            times = []
+            for _ in range(calls):
+                t1 = time.perf_counter()
+                fn()
+                sync()
+                times.append((time.perf_counter() - t1) * 1e3)
+            return sorted(times)[calls // 2], times
+
+        for ring, op, fn in per_ops:
+            _, launches = count_step(fn)
+            host_ms, times = median_ms(fn)
+            prof = profile_steps(torch, fn, 10, host_ms)
+            emit({"phase": "per_op", "ring": ring, "op": op, "host_ms_median": host_ms,
+                  "host_ms_min": min(times), "device_ms": prof["device_ms_per_step"],
+                  "device_busy_share": prof["device_busy_share"],
+                  "launches": {k: c for k, c in by_label(launches).items() if c},
+                  "card": card})
+            emit({"phase": "profile", "path": f"per_op {ring} {op}", **prof})
+        tiers = [("host Evaluator", 1, lambda: ex8_chain(ev_d, ct_d)),
+                 ("DeviceEvaluator", 1, lambda: ex8_chain(dev_d, dev_d.put(ct_d))),
+                 (f"build_ckks_train_step batch {b_d}", b_d,
+                  lambda: train_d(batch_d, batch_d, rk_d2, gk_d1))]
+        for tier, count, fn in tiers:
+            host_ms, _ = median_ms(fn)
+            prof = profile_steps(torch, fn, 10, host_ms)
+            emit({"phase": "ex8_tiers", "tier": tier, "batch": count,
+                  "host_ms_median": host_ms, "host_ms_per_ciphertext": host_ms / count,
+                  "device_ms_per_ciphertext": prof["device_ms_per_step"] / count,
+                  "device_busy_share": prof["device_busy_share"], "card": card})
+
     # 7. kernels line and result line -----------------------------------------------
     replaces = {
         "ntt": "gemini_seal_tpu/ops/ntt.py:241 ntt_forward_lazy, :322 ntt_inverse_lazy",
@@ -1343,6 +1766,14 @@ def main(argv=None) -> int:
                        "decrypt_scale_and_round",
         "mod_raise": "gemini_seal_tpu/models/bootstrap.py:253 mod_raise (the centred lift, "
                      ":261-264)",
+        "negacyclic:mono_mul": "gemini_seal_tpu/ops/dyadic.py:128 negacyclic_mono_mul_poly "
+                               "(gemini_seal_tpu/evaluator.py:272, the monomial "
+                               "multiply_plain)",
+        "negacyclic:shift": "gemini_seal_tpu/ops/dyadic.py:109 negacyclic_shift_poly",
+        "negacyclic": "gemini_seal_tpu/ops/dyadic.py:109 negacyclic_shift_poly, :128 "
+                      "negacyclic_mono_mul_poly",
+        "infty_norm": "gemini_seal_tpu/ops/dyadic.py:135 poly_infty_norm",
+        "elementwise:reduce64": "gemini_seal_tpu/ops/dyadic.py:102 modulo_poly_coeffs",
     }
     sources = {k: f"gemini_seal_tpu_torch/csrc/{v[0]}" for k, v in cuda.KERNELS.items()}
     library_calls = {
@@ -1354,13 +1785,19 @@ def main(argv=None) -> int:
                                 "the signs mod p)",
         "mod_raise": "the reduction part: torch.remainder broadcast over the L primes (no "
                      "PyTorch call lifts the negative residues)",
+        "negacyclic:shift": "torch.roll + torch.where (p - a where the coefficient wrapped)",
+        "negacyclic:mono_mul": "the permutation and signs only: torch.roll + torch.where (no "
+                               "PyTorch call multiplies mod p)",
+        "infty_norm": "torch.amax of the centred magnitude (torch.where first)",
+        "elementwise:reduce64": "torch.remainder by the per-limb primes",
     }
     kernels = []
     for label, row in rows.items():
         bp = row["by_path"]
         total = {f: sum(p[f] for p in bp.values())
                  for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "imads")}
-        has_lib = label.startswith("galois") or label == "mod_raise"
+        has_lib = label.startswith(("galois", "negacyclic")) or label in (
+            "mod_raise", "infty_norm", "elementwise:reduce64")
         fields = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if has_lib else ())
         kernels.append({
             "name": label, "route": "cuda", "source": sources[label.split(":")[0]],

@@ -16,8 +16,12 @@ BEHZ multiply + relinearize, its mod-switch chain, the power-basis Galois
 automorphism and the hoisted row rotations; the encrypted matvecs
 (hoisted diagonal method and baby-step/giant-step), the Chebyshev-cosine
 EvalMod and the CKKS bootstrap (models.bootstrap, whose mod-raise runs on
-the ``mod_raise`` kernel), and the Evaluator's modulus switch.  Every ring
-degree up to SEAL's cap, N=65536, runs on the card.
+the ``mod_raise`` kernel); the SEAL per-op API: the whole ``Evaluator``
+(its monomial multiply_plain on the ``negacyclic`` kernel),
+``DeviceEvaluator``, ``IntegerEncoder``, the Plaintext and Ciphertext
+helpers and the BFV noise budget, and the rest of ops/dyadic.py
+(``poly_infty_norm`` on the ``infty_norm`` kernel).  Every ring degree up to
+SEAL's cap, N=65536, runs on the card.
 """
 
 from .modulus import CoeffModulus, Modulus, PlainModulus, SecLevelType
@@ -29,7 +33,8 @@ from .keygenerator import KeyGenerator
 from .encryptor import Encryptor
 from .decryptor import Decryptor
 from .evaluator import Evaluator
-from .encoders import BatchEncoder, CKKSEncoder
+from .encoders import BatchEncoder, CKKSEncoder, IntegerEncoder
+from .models.device_evaluator import DeviceEvaluator
 from .models.pipelines import (build_bfv_mul_relin, build_bfv_mul_relin_modswitch,
                                build_bfv_rotate_many, build_ckks_matvec,
                                build_ckks_matvec_bsgs, build_ckks_mul_relin_rescale,
@@ -57,8 +62,10 @@ __all__ = [
     "Encryptor",
     "Decryptor",
     "Evaluator",
+    "DeviceEvaluator",
     "BatchEncoder",
     "CKKSEncoder",
+    "IntegerEncoder",
     "build_bfv_mul_relin",
     "build_bfv_mul_relin_modswitch",
     "build_bfv_rotate_many",

@@ -9,12 +9,15 @@ the port's pipelines:
     ct = ciphertext_from_arrays(ctx, jct.data, jct.parms_id,
                                 jct.is_ntt_form, jct.scale)
     rk = relin_keys_from_array(ctx, np.stack([pk.data.data for pk in jrk.key(2)]))
+    rk2 = relin_keys_from_array(ctx, [np.stack([pk.data.data for pk in jrk.key(p)])
+                                      for p in (2, 3)])       # RelinKeys count 2
     gk = galois_keys_from_arrays(ctx, {e: np.stack([pk.data.data for pk in jgk.key(e)])
                                        for e in elts})
     stack = galois_stack_from_array(ctx, jstack)      # [R, nb, 2, L_key, N]
     conj = galois_stack_from_array(ctx, jgk.stacked(2 * n - 1))  # one key
     sk = secret_key_from_array(ctx, jkg.secret_key.data)
     pt = plaintext_from_array(ctx, jpt.data)          # a BFV plaintext
+    pt = plaintext_from_array(ctx, jpt.data, jpt.parms_id, jpt.scale)  # NTT form
 """
 
 from __future__ import annotations
@@ -66,9 +69,11 @@ def _kswitch_key(context: SealContext, data, what: str):
 
 
 def relin_keys_from_array(context: SealContext, data) -> RelinKeys:
-    """u64[n_bundles, 2, L_key, N] relinearization key (for s^2) -> RelinKeys."""
+    """u64[n_bundles, 2, L_key, N] relinearization key (for s^2), or a list of
+    them (the keys for s^2, s^3, ...) -> RelinKeys."""
     rk = RelinKeys()
-    rk.keys = [_kswitch_key(context, data, "relin key")]
+    keys = data if isinstance(data, (list, tuple)) else [data]
+    rk.keys = [_kswitch_key(context, k, "relin key") for k in keys]
     rk.parms_id = context.key_parms_id
     return rk
 
@@ -109,10 +114,18 @@ def secret_key_from_array(context: SealContext, data) -> SecretKey:
     return SecretKey(to_tensor(data, context.device), pid)
 
 
-def plaintext_from_array(context: SealContext, data) -> Plaintext:
-    """u64[count] BFV plaintext coefficients (power basis, count <= N) ->
-    Plaintext with parms_id zero."""
+def plaintext_from_array(context: SealContext, data, parms_id=PARMS_ID_ZERO,
+                         scale: float = 1.0) -> Plaintext:
+    """u64[count] BFV plaintext coefficients (power basis, count <= N, trailing
+    zeros kept, so significant_coeff_count carries over) -> Plaintext with
+    parms_id zero; with a parms_id, the u64[L, N] NTT-form plaintext of that
+    level (CKKS, or a BFV plaintext after transform_plain_to_ntt) with its
+    scale."""
     data = np.asarray(data, dtype=np.uint64)
+    if _parms_id(parms_id) != PARMS_ID_ZERO:
+        if data.shape != _level_shape(context, parms_id):
+            raise ValueError("NTT-form plaintext data does not match its level")
+        return Plaintext(to_tensor(data, context.device), _parms_id(parms_id), float(scale))
     n = context.first_context_data().parms.poly_modulus_degree
     if data.ndim != 1 or not 0 < data.shape[0] <= n:
         raise ValueError(f"plaintext data {data.shape} is not [count <= {n}]")

@@ -8,13 +8,17 @@
 // and the rounding steps of ops/rnsops.py divide_and_round_q_last_ntt that
 // key generation, encryption and decryption run on the card; op 7 is the
 // tail of the BFV fast_floor (ops/rnsops.py:356-366, x_bsk + (p - conv)
-// times q^-1 mod p) and of the power-basis limb drops.
+// times q^-1 mod p) and of the power-basis limb drops; op 8 is
+// modulo_poly_coeffs (ops/dyadic.py:102-106, barrett_reduce_64 of arbitrary
+// u64 < 2^63 into [0, p)).
 //
 //   op 0 add: a + b       1 sub: a - b        2 neg: -a        3 mul: a * b
 //      4 muladd: a*s + b  5 addmul: (a + b)*s  6 barrett64: (a + b) mod p
 //      7 submul: (a - b)*s, computed as the JAX function does: the u64
 //        a + (p - b), un-reduced, into one full-range mul_mod (canonical
 //        output, so for b < p it equals sub_mod then mul_mod)
+//      8 reduce64: a mod p by Barrett-64, no b (a zero b tensor would be a
+//        wasted read)
 //
 // b is a tensor broadcast over a's leading axes (index idx % b_numel) or a
 // per-limb constant; s is a per-limb constant.
@@ -49,6 +53,7 @@ __global__ void elementwise_kernel(u64* __restrict__ out, const u64* __restrict_
             case 4: r = add_mod(y, mul_mod(x, s[l], p, r0s[l], r1s[l]), p); break;
             case 5: r = mul_mod(add_mod(x, y, p), s[l], p, r0s[l], r1s[l]); break;
             case 6: r = barrett_reduce_64(x + y, p, r1s[l]); break;
+            case 8: r = barrett_reduce_64(x, p, r1s[l]); break;
             default: r = mul_mod(x + (p - y), s[l], p, r0s[l], r1s[l]); break;
         }
         out[idx] = r;
@@ -61,7 +66,7 @@ extern "C" int gst_elementwise(void* out, const void* a, const void* b, long lon
                                const void* bc, const void* s, const void* mod,
                                const void* r0, const void* r1, long long total,
                                long long L, long long n, long long op, void* stream) {
-    if (op < 0 || op > 7) return (int)cudaErrorInvalidValue;
+    if (op < 0 || op > 8) return (int)cudaErrorInvalidValue;
     const int threads = 256;
     elementwise_kernel<<<grid_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
         (u64*)out, (const u64*)a, (const u64*)b, b_numel, (const u64*)bc, (const u64*)s,

@@ -4,7 +4,10 @@ Port of gemini_seal_tpu/decryptor.py.  BFV: the dot product sum_i c_i s^i
 in the power basis (forward NTT of c_1.., products with the powers of s,
 inverse NTT, plus c_0), then the exact {t, gamma} scale-and-round
 (rns.cpp:1070-1126; kernels ``contract`` and ``scale_round``).  CKKS: the
-NTT-domain dot product is the RNS NTT plaintext.
+NTT-domain dot product is the RNS NTT plaintext.  The BFV noise budget
+takes the same dot product on the card and its multiply by t
+(``elementwise``), then composes the residues by CRT and takes the centred
+norm on the host with Python ints, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import torch
 from .ciphertext import Ciphertext, Plaintext
 from .context import SealContext
 from .keys import SecretKey
-from .ops.dyadic import add_poly, dyadic_product
+from .ops.backend import to_numpy
+from .ops.dyadic import add_poly, dyadic_product, multiply_poly_scalar
 from .ops.ntt import ntt_forward, ntt_inverse
 from .ops.rnsops import decrypt_scale_and_round
 from .params import PARMS_ID_ZERO, SchemeType
@@ -79,3 +83,24 @@ class Decryptor:
             raise ValueError("encrypted must be in NTT form")
         return Plaintext(data=self._dot_product_ct_sk(encrypted),
                          parms_id=encrypted.parms_id, scale=encrypted.scale)
+
+    def invariant_noise_budget(self, encrypted: Ciphertext) -> int:
+        """Bits of noise budget remaining (decryptor.cpp:269-325)."""
+        cd = self.context.get_context_data(encrypted.parms_id)
+        if cd.parms.scheme != SchemeType.BFV:
+            raise ValueError("unsupported scheme")
+        if encrypted.is_ntt_form:
+            raise ValueError("encrypted cannot be in NTT form")
+        limbs = cd.limb_constants
+        t = torch.full_like(limbs.p, cd.parms.plain_modulus.value)
+        noise = multiply_poly_scalar(self._dot_product_ct_sk(encrypted), t, limbs)
+        # CRT-compose on the host and take the centred infinity norm
+        big = cd.rns_base.compose_array(to_numpy(noise))
+        q = cd.total_coeff_modulus
+        half = q >> 1
+        norm = 0
+        for v in big:
+            mag = q - v if v > half else v
+            if mag > norm:
+                norm = mag
+        return max(0, cd.total_coeff_modulus_bit_count - norm.bit_length() - 1)

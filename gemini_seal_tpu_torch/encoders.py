@@ -13,8 +13,9 @@ residues broadcast across N are already its NTT form (no transform); a
 non-finite scalar raises (the JAX package lets an infinite value*scale
 through its size check).  encode_at_base decomposes the same rounded
 coefficients over another modulus set (the key-switch extended base), and
-encode_stack encodes many vectors with one NTT launch.  The IntegerEncoder
-comes with a later slice.
+encode_stack encodes many vectors with one NTT launch.  IntegerEncoder:
+the legacy base-2 signed-digit encoder, host code (its plaintext is placed
+on the context's device).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from .ops.ntt import ntt_forward, ntt_inverse
 from .params import SchemeType
 from .utils import mplimb, numth
 
-__all__ = ["BatchEncoder", "CKKSEncoder", "ComplexRoots"]
+__all__ = ["BatchEncoder", "CKKSEncoder", "ComplexRoots", "IntegerEncoder"]
 
 
 class ComplexRoots:
@@ -384,3 +385,36 @@ class CKKSEncoder:
         mag = mplimb.ints_to_limbs([q - v if v >= upper else v for v in vals], K)
         res_real = mplimb.ladder_to_double(mag, inv_scale)
         return np.where(is_neg, -res_real, res_real)
+
+
+class IntegerEncoder:
+    """Legacy base-2 signed-digit integer encoder (BFV only)
+    (reference: intencoder.{h,cpp})."""
+
+    def __init__(self, context: SealContext, device=None):
+        cd = context.first_context_data()
+        if cd.parms.scheme != SchemeType.BFV:
+            raise ValueError("unsupported scheme")
+        self.device = context.check_device(device)
+        self.context = context
+        self.plain_modulus = cd.parms.plain_modulus.value
+
+    def encode(self, value: int) -> Plaintext:
+        """Binary digits of |value|, each 1, or t - 1 for a negative value."""
+        digit = self.plain_modulus - 1 if value < 0 else 1
+        mag = abs(int(value))
+        coeffs = np.zeros(max(mag.bit_length(), 1), dtype=np.uint64)
+        for i in range(mag.bit_length()):
+            if (mag >> i) & 1:
+                coeffs[i] = digit
+        return Plaintext(data=to_tensor(coeffs, self.device))
+
+    def decode(self, plain: Plaintext) -> int:
+        t = self.plain_modulus
+        half = t >> 1
+        total = 0
+        coeffs = to_numpy(plain.data)
+        for i in range(len(coeffs) - 1, -1, -1):
+            c = int(coeffs[i])
+            total = total * 2 + (c - t if c > half else c)
+        return total

@@ -13,7 +13,9 @@ after its kernel launched, and nowhere else.  A call in one of a kernel's
 modes (``MODES``) also adds one under ``"kernel:mode"``, so that a check can
 tell that the mode ran: the large-ring NTT, the signed, paired and signed
 paired Galois permutations, the contraction with its input broadcast over
-the groups.  A call runs in at most one mode.
+the groups, the elementwise Barrett-64 reduction without a second operand,
+and the negacyclic shift with and without its monomial multiply.  A call
+runs in at most one mode.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ KERNELS = {
     "behz": ("behz.cu", "gst_behz", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "scale_round": ("scale_round.cu", "gst_scale_round", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "mod_raise": ("mod_raise.cu", "gst_mod_raise", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "negacyclic": ("negacyclic.cu", "gst_negacyclic", [
+        _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "infty_norm": ("infty_norm.cu", "gst_infty_norm", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 # kernel name -> the modes that a call names (see ``call``)
@@ -66,6 +71,8 @@ MODES = {
     "ntt": ("large_ring",),
     "galois": ("signed", "paired", "signed_paired"),
     "contract": ("broadcast",),
+    "elementwise": ("reduce64",),
+    "negacyclic": ("shift", "mono_mul"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

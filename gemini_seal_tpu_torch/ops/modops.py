@@ -17,7 +17,9 @@ This module also holds the wrappers of the two kernels built from it:
   multiply-accumulate contraction behind accumulate_mulmod_128's three
   call sites (mod-up, key inner product, _dot_mod_128);
 - :func:`rns_elementwise` (kernel ``elementwise``): the per-limb
-  add/sub/neg/mul_mod chains of the ring ops and of the fused mod-down.
+  add/sub/neg/mul_mod chains of the ring ops and of the fused mod-down,
+  and the Barrett-64 reduction of modulo_poly_coeffs (its ``reduce64``
+  mode).
 """
 
 from __future__ import annotations
@@ -270,7 +272,7 @@ def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None):
 
 # op codes shared with csrc/elementwise.cu
 OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3, "muladd": 4, "addmul": 5,
-       "barrett64": 6, "submul": 7}
+       "barrett64": 6, "submul": 7, "reduce64": 8}
 
 
 def elementwise_plain(op, a, p, ratio0, ratio1, b=None, s=None):
@@ -291,6 +293,8 @@ def elementwise_plain(op, a, p, ratio0, ratio1, b=None, s=None):
         return barrett_reduce_64(a + b, p, ratio1)
     if op == "submul":
         return mul_mod(a + (p - b), s, p, ratio0, ratio1)
+    if op == "reduce64":
+        return barrett_reduce_64(a, p, ratio1)
     raise ValueError(f"unknown elementwise op {op!r}")
 
 
@@ -301,7 +305,7 @@ def rns_elementwise(op: str, a, p, ratio0, ratio1, b=None, s=None):
     shape of a) or a per-limb constant [L, 1]; s is a per-limb constant.
       add: a + b    sub: a - b    neg: -a    mul: a * b
       muladd: a * s + b    addmul: (a + b) * s    barrett64: (a + b) mod p
-      submul: (a - b) * s
+      submul: (a - b) * s    reduce64: a mod p (no b; a < 2^63)
     (barrett64 is the u64 add then barrett_reduce_64, as the rounding step
     of divide_and_round_q_last_ntt computes it; submul is the u64
     a + (p - b) then one full-range mul_mod, as fast_floor computes it, so
@@ -325,7 +329,7 @@ def rns_elementwise(op: str, a, p, ratio0, ratio1, b=None, s=None):
             b_full = b
         else:
             raise ValueError(f"elementwise: b {tuple(b.shape)} does not broadcast to a {tuple(a.shape)}")
-    elif op != "neg":
+    elif op not in ("neg", "reduce64"):
         raise ValueError(f"elementwise {op}: b is required")
     if op in ("muladd", "addmul", "submul") and (s is None or s.numel() != L):
         raise ValueError(f"elementwise {op}: s must be a per-limb constant")
@@ -338,5 +342,5 @@ def rns_elementwise(op: str, a, p, ratio0, ratio1, b=None, s=None):
     cuda.call("elementwise", cuda.ptr(out), cuda.ptr(a), cuda.ptr(b_full),
               0 if b_full is None else b_full.numel(), cuda.ptr(b_const),
               cuda.ptr(s), cuda.ptr(p), cuda.ptr(ratio0), cuda.ptr(ratio1),
-              a.numel(), L, N, OPS[op])
+              a.numel(), L, N, OPS[op], mode="reduce64" if op == "reduce64" else None)
     return out

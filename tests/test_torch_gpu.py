@@ -4,8 +4,10 @@ ring, with the 60-bit Bsk primes and m_tilde = 2^32; the NTT's large-ring
 mode at N=32768 and 65536; the Galois kernel's signed and paired modes and
 the contraction's broadcast mode), and the fused step, the train step, the
 hoisted rotations in both key forms, the BFV steps and rotations and the
-deep polynomial against the plain path, and keygen, encryption and
-decryption at N=32768.  They need a CUDA card and skip without one; on a machine with
+deep polynomial against the plain path, keygen, encryption and
+decryption at N=32768, the negacyclic monomial multiply (both modes), the
+centred norm and the Barrett-64 reduction of ops/dyadic.py, and the per-op
+Evaluator's ex1 chain at N=4096 against the plain path.  They need a CUDA card and skip without one; on a machine with
 an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
@@ -678,3 +680,92 @@ def test_bootstrap_matches_plain_path(card):
     out = np.asarray(enc.decode(T.Decryptor(ctx, kg.secret_key).decrypt(
         T.Ciphertext(got, pid, True, scale)), as_complex=True))
     assert np.abs(out - msg).max() < 5e-6
+
+
+@pytest.mark.parametrize("n", [64, 4096, 32768])
+@pytest.mark.parametrize("mode", ["shift", "mono_scalar", "mono_per_limb"])
+def test_negacyclic_kernel(card, n, mode):
+    """K9 in both modes on random residues with zeros planted, at the shifts
+    that wrap nothing, all or all but one coefficient, and beyond N; the
+    monomial's coefficient in [p, 2p) (the fast plain lift's q_i - t + c)."""
+    from gemini_seal_tpu_torch.ops import dyadic
+
+    mods = _mods(n, (60, 50, 40))
+    limbs = LimbConstants.from_moduli(mods, card)
+    x = _res(np.random.default_rng(n), mods, (2,), n)
+    x[..., ::5] = 0
+    a = to_tensor(x, card)
+    col = to_tensor(np.array([2 * p - 1 - i for i, p in enumerate(mods)],
+                             dtype=np.uint64).reshape(-1, 1), card)
+    for k in (1, 3, n - 1, n, n + 1, 2 * n - 1, 0):
+        before = cuda.LAUNCHES.copy()
+        if mode == "shift":
+            if k == 0:
+                continue  # x^0 returns its input without a launch
+            got, want = _both(dyadic.negacyclic_shift_poly, a, k, limbs)
+        elif mode == "mono_scalar":
+            got, want = _both(dyadic.negacyclic_mono_mul_poly, a, max(mods) + 7, k, limbs)
+        else:
+            got, want = _both(dyadic.negacyclic_mono_mul_poly, a, col, k, limbs)
+        label = "negacyclic:" + ("shift" if mode == "shift" else "mono_mul")
+        assert cuda.LAUNCHES[label] == before[label] + 1
+        assert torch.equal(got, want), (mode, k)
+
+
+@pytest.mark.parametrize("n", [64, 4096, 32768])
+def test_infty_norm_and_reduce64_kernels(card, n):
+    """K10 with magnitudes planted at p>>1 and p>>1 + 1, and K4's reduce64
+    on u64 inputs up to 2^63 - 1, each against its plain version."""
+    from gemini_seal_tpu_torch.ops import dyadic
+
+    mods = _mods(n, (60, 50, 40))
+    limbs = LimbConstants.from_moduli(mods, card)
+    rng = np.random.default_rng(n + 1)
+    x = _res(rng, mods, (3,), n)
+    x[0, :, 7 % n] = [p >> 1 for p in mods]
+    x[1, :, 9 % n] = [(p >> 1) + 1 for p in mods]
+    got, want = _both(dyadic.poly_infty_norm, to_tensor(x, card), limbs)
+    assert got.shape == (3, 3) and torch.equal(got, want)
+    wide = rng.integers(0, 1 << 63, size=(3, 3, n), dtype=np.uint64)
+    wide[0, :, 0] = (1 << 63) - 1
+    before = cuda.LAUNCHES["elementwise:reduce64"]
+    got, want = _both(dyadic.modulo_poly_coeffs, to_tensor(wide, card), limbs)
+    assert cuda.LAUNCHES["elementwise:reduce64"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_per_op_chain_matches_plain_path(card):
+    """examples/ex1_bfv_basics.py at N=4096 through the Evaluator on the card
+    against the same chain with every kernel's plain version, then the
+    decrypt and the noise budget."""
+    parms = T.EncryptionParameters(T.SchemeType.BFV)
+    parms.set_poly_modulus_degree(4096)
+    parms.set_coeff_modulus(T.CoeffModulus.bfv_default(4096))
+    parms.set_plain_modulus(1024)
+    parms.set_random_seed(tuple(range(8)))
+    ctx = T.SealContext(parms, device=card)
+    kg = T.KeyGenerator(ctx, device=card)
+    rk = kg.relin_keys()
+    ev = T.Evaluator(ctx, device=card)
+    dec = T.Decryptor(ctx, kg.secret_key, device=card)
+    x = T.Encryptor(ctx, kg.public_key(), device=card).encrypt(
+        T.Plaintext.from_hex("6", device=card))
+
+    def chain():
+        P = lambda h: T.Plaintext.from_hex(h, device=card)  # noqa: E731
+        a = ev.add_plain(ev.relinearize(ev.square(x), rk), P("1"))
+        b = ev.relinearize(ev.square(ev.add_plain(x, P("1"))), rk)
+        r = ev.relinearize(ev.multiply(ev.multiply_plain(a, P("4")), b), rk)
+        return [a.data, b.data, r.data]
+
+    before = cuda.LAUNCHES["negacyclic:mono_mul"]
+    got = chain()
+    assert cuda.LAUNCHES["negacyclic:mono_mul"] == before + 1
+    with plain_versions():
+        want = chain()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    r = T.Ciphertext(got[2], x.parms_id, False)
+    assert int(dec.decrypt(r).data[0].item()) == 84
+    assert dec.invariant_noise_budget(r) == 10

@@ -2,10 +2,11 @@
 
 No file of gemini_seal_tpu_torch/ and no part of chip_smoke.py imports jax
 or gemini_seal_tpu; importing the port, the bootstrap, EvalMod and the
-Evaluator included, leaves jax out of sys.modules; every kernel source
-(K1-K8) is registered and documented; with no card present an entry point
-called without ``device`` raises; and chip_smoke.py's CPU rehearsal runs
-its twelve paths end to end.
+Evaluator, the DeviceEvaluator and the rest of ops/dyadic.py included,
+leaves jax out of sys.modules; every kernel source (K1-K10) is registered
+and documented; with no card present an entry point called without
+``device`` raises; and chip_smoke.py's CPU rehearsal runs its sixteen paths
+end to end.
 """
 
 import ast
@@ -69,7 +70,8 @@ def test_every_kernel_source_is_built_and_documented(source):
 def test_import_leaves_jax_out():
     code = ("import sys, gemini_seal_tpu_torch, gemini_seal_tpu_torch.convert, "
             "gemini_seal_tpu_torch.evaluator, gemini_seal_tpu_torch.models.bootstrap, "
-            "gemini_seal_tpu_torch.models.evalmod, gemini_seal_tpu_torch.ops.modraise; "
+            "gemini_seal_tpu_torch.models.evalmod, gemini_seal_tpu_torch.ops.modraise, "
+            "gemini_seal_tpu_torch.models.device_evaluator, gemini_seal_tpu_torch.ops.dyadic; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gemini_seal_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -113,7 +115,10 @@ def test_entry_points_default_to_the_card():
                  lambda: build_ckks_bootstrap(ctx, 2.0 ** 20, encoder),
                  lambda: ChebyEvalMod(ctx, cds, [1], [None], [1], encoder, 0, 2.0 ** 20,
                                       [0.0, 1.0], 1, False),
-                 lambda: T.Evaluator(ctx)):
+                 lambda: T.Evaluator(ctx),
+                 lambda: T.DeviceEvaluator(ctx),
+                 lambda: T.Plaintext.from_hex("1x^2 + 3"),
+                 lambda: T.Plaintext.from_coeffs([1, 2])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -141,7 +146,10 @@ def test_bfv_entry_points_default_to_the_card():
                  lambda: T.build_bfv_mul_relin_modswitch(ctx),
                  lambda: T.build_bfv_mul_relin_modswitch(ctx, fused_drop=False),
                  lambda: T.build_bfv_rotate_many(ctx, [1, 2]),
-                 lambda: T.build_bfv_rotate_many(ctx, [1], prepermuted_keys=True)):
+                 lambda: T.build_bfv_rotate_many(ctx, [1], prepermuted_keys=True),
+                 lambda: T.IntegerEncoder(ctx),
+                 lambda: T.Evaluator(ctx),
+                 lambda: T.DeviceEvaluator(ctx)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
@@ -156,8 +164,8 @@ def test_chip_smoke_cpu_rehearsal():
     assert json.loads(lines[-1]) == {"ok": True, "rehearsal": "cpu"}
     kernels = json.loads(lines[-2])["kernels"]
     assert sorted(k["name"] for k in kernels) == ["behz", "contract", "elementwise", "galois",
-                                                  "mod_raise", "ntt", "scale_round",
-                                                  "tensor_product"]
+                                                  "infty_norm", "mod_raise", "negacyclic",
+                                                  "ntt", "scale_round", "tensor_product"]
     forms = [json.loads(l)["form"] for l in lines if '"batch2"' in l]
     assert forms == ["multiply", "square", "sequential_multiply", "train_step", "rotate_many",
                      "rotate_many_prepermuted", "bfv_chain_fused_drop",
@@ -172,13 +180,21 @@ def test_chip_smoke_cpu_rehearsal():
                                           "bfv_rotate_rows", "bfv_rotate_many",
                                           "ckks_mul_relin_rescale_n16384",
                                           "ckks_poly_eval_n32768", "n65536",
-                                          "bootstrap_n4096", "dense8x8_n8192"]
+                                          "bootstrap_n4096", "dense8x8_n8192",
+                                          "per_op_bfv_n4096", "per_op_bfv_n8192_levels",
+                                          "per_op_ckks", "device_evaluator_n8192"]
     assert all(p["decode_exact"] for p in paths[3:7])
     assert paths[6]["key_forms_decode_equal"]
     assert paths[2]["max_abs_decode_diff_between_key_forms"] < 1e-5
     assert paths[8]["max_abs_decode_err"] < 1e-3 and paths[9]["ntt_round_trip_exact"]
     assert paths[10]["max_err"] < 1e-6 and paths[10]["levels_restored"] == 3
     assert paths[11]["max_abs_decode_err"] < 1e-4
+    # the per-op API: each example's checks (the rehearsal's rings are N=256,
+    # so the digests and budgets of the examples' own rings are the card's)
+    for p in paths[12:]:
+        assert p["checks"] and all(p["checks"].values()), p
+    assert paths[12]["ex1_decrypts"] == 84 and paths[12]["ex2_integer_sum"] == -2
+    assert paths[13]["degree"] == 8
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -47,12 +47,14 @@ def contiguous_calls():
     for info in pkgutil.walk_packages(gemini_seal_tpu_torch.__path__, "gemini_seal_tpu_torch."):
         importlib.import_module(info.name)
     from gemini_seal_tpu_torch.models import pipelines
-    from gemini_seal_tpu_torch.ops import galois, modops, modraise, ntt, rnsops
+    from gemini_seal_tpu_torch.ops import dyadic, galois, modops, modraise, ntt, rnsops
 
     wrappers = [ntt.ntt_forward_lazy, ntt.ntt_forward, ntt.ntt_inverse_lazy,
                 ntt.ntt_inverse, pipelines._tensor_product, modops.contract_mulmod_128,
                 modops.rns_elementwise, galois.galois_permute, rnsops.behz,
-                rnsops.scale_round, modraise.mod_raise_lift]
+                rnsops.scale_round, modraise.mod_raise_lift, dyadic.modulo_poly_coeffs,
+                dyadic.negacyclic_shift_poly, dyadic.negacyclic_mono_mul_poly,
+                dyadic.poly_infty_norm]
 
     def strict(fn):
         def call(*args, **kwargs):
