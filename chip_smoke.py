@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # small rings on the CPU, plain versions
+    python3 chip_smoke.py --nccl-only      # on four cards: only the NCCL phase
 
-Sixteen paths run, each driven once with every launch counter set to 0 just
+Twenty-two paths run, each driven once with every launch counter set to 0 just
 before it and read just after it.  Three are CKKS, on bench.py's ring
 (N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
 seed range(71, 79), scale 2^40):
@@ -91,12 +92,32 @@ parms seed range(8), each example's own checks:
   Evaluator, the DeviceEvaluator, the train step at batch 8), equal bit for
   bit and to EX8's sha256, and DeviceEvaluator.multiply_relin_rescale.
 
+Six are the multi-device schedules of parallel/ as C = 4 ranks of a
+ThreadGroup (threads of this process) on the one card, each equal bit for
+bit to the port's single-card path on the same inputs, with its
+collectives per rank:
+
+- ntt_sp4_n65536 and ntt_sp4_n16384: the coefficient-sharded NTT, both
+  forms both ways, on the N=65536 cell's residues and config 4's step
+  input, against K1's transform;
+- ckks_mul_relin_rescale_csp4_n16384: config 4's step on the four-step
+  pipeline, then one rotation at batch 16; decodes within 1e-4;
+- ckks_mul_relin_rescale_limb4_n4096: the one-gather step at N=4096,
+  [30] x 10, two special primes (two rows a rank), batch 128, its q_last
+  row zeroed, then the hoisted rotations by 1..8 at batch 16;
+- bfv_mul_relin_behz4_n8192: config 3's ring on the five-gather BEHZ,
+  decoding v^2 mod t exactly;
+- matvec_limb4_n4096: the limb-sharded hoisted matvec of an 8x8 matrix.
+
+With four cards an NCCL phase runs the csp4 and limb4 steps, one process
+per card, against the single-card step; with fewer it says so.
+
 The script
 
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
-2. builds the ten kernels (nvcc, one process each, in parallel) and
+2. builds the eleven kernels (nvcc, one process each, in parallel) and
    prints each one's -Xptxas -v summary;
-3. drives the sixteen paths; as each kernel call happens it
+3. drives the twenty-two paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
    launches of the check are taken off the counters), and times each
@@ -108,9 +129,9 @@ The script
    beside torch.amax); in the refresh and the per-op paths, whose steps
    repeat call shapes, each distinct call is timed once;
    ``scale_round``, which runs in encryption and decryption only, is timed
-   at those calls; a kernel's modes (the large-ring NTT, the signed and
-   paired Galois permutations, the broadcast contraction) are rows of
-   their own;
+   at those calls; a kernel's modes (the large-ring and sub_row NTT, the
+   signed and paired Galois permutations, the broadcast contraction, K11's
+   exchange and rows) are rows of their own;
 5. checks batch 2 of every step form (the refresh: its one ciphertext)
    against the port's plain path on the card, bit for bit, and each one's
    decode (with BFV rotate_columns);
@@ -119,7 +140,7 @@ The script
    rotation in turns, and profiles each (device time by kernel, device
    busy share), with the recorder removed; then each op of the per-op API
    (median host ms over 20 waited calls, device ms and busy share) and
-   ex8's three tiers per ciphertext;
+   ex8's three tiers per ciphertext; the NCCL phase, or why it did not run;
 7. prints the kernels line and, last, the result line.
 
 Any mismatch raises and the script exits non-zero; it exits non-zero with
@@ -178,6 +199,14 @@ PATH_KERNELS = {
     "per_op_bfv_n8192_levels": ("ntt", "tensor_product", "contract", "elementwise", "behz"),
     "per_op_ckks": ("ntt", "tensor_product", "contract", "elementwise", "galois"),
     "device_evaluator_n8192": ("ntt", "tensor_product", "contract", "elementwise", "galois"),
+    "ntt_sp4_n65536": ("ntt:sub_row", "ntt_sp:exchange", "ntt_sp:rows"),
+    "ntt_sp4_n16384": ("ntt:sub_row", "ntt_sp:exchange", "ntt_sp:rows"),
+    "ckks_mul_relin_rescale_csp4_n16384": ("ntt:sub_row", "ntt_sp:rows", "tensor_product",
+                                           "contract", "elementwise", "galois"),
+    "ckks_mul_relin_rescale_limb4_n4096": ("ntt", "tensor_product", "contract", "elementwise",
+                                           "galois"),
+    "bfv_mul_relin_behz4_n8192": ("ntt", "tensor_product", "contract", "elementwise", "behz"),
+    "matvec_limb4_n4096": ("ntt", "contract", "elementwise", "galois"),
 }
 # paths whose step repeats a call shape many times: each distinct call is
 # timed once and its time counted for every call of that shape
@@ -240,11 +269,16 @@ class Recorder:
     as a user calls them."""
 
     def __init__(self, check):
+        import threading
+
         from gemini_seal_tpu_torch.models import pipelines
-        from gemini_seal_tpu_torch.ops import cuda, dyadic, galois, modops, modraise, ntt, rnsops
+        from gemini_seal_tpu_torch.ops import (cuda, dyadic, galois, modops, modraise, ntt,
+                                               ntt_sp, rnsops)
 
         kernel_of = {ntt.ntt_forward_lazy: "ntt", ntt.ntt_forward: "ntt",
                      ntt.ntt_inverse_lazy: "ntt", ntt.ntt_inverse: "ntt",
+                     ntt.ntt_sub_row: "ntt", ntt_sp.ntt_sp_exchange: "ntt_sp",
+                     ntt_sp.ntt_sp_rows: "ntt_sp",
                      pipelines._tensor_product: "tensor_product",
                      modops.contract_mulmod_128: "contract",
                      modops.rns_elementwise: "elementwise",
@@ -260,6 +294,10 @@ class Recorder:
         self.path = None
         self.phase = None
         self._patched = []
+        # the ranks of a ThreadGroup call the wrappers from threads: one call
+        # (its launch, check and timing) at a time, and no exchange copy of
+        # the group (ThreadGroup(lock=...)) while a call is timed
+        self.lock = threading.RLock()
         wrapped = {id(fn): (fn, self._wrap(kernel, fn)) for fn, kernel in kernel_of.items()}
         for name, mod in list(sys.modules.items()):
             if name.split(".")[0] != "gemini_seal_tpu_torch" or mod is None:
@@ -277,14 +315,16 @@ class Recorder:
 
     def _wrap(self, kernel, fn):
         def wrapped(*args, **kwargs):
-            before = dict(self.launches)
-            out = fn(*args, **kwargs)
-            if self.phase is not None:
-                counts = dict(self.launches)
-                label = next((k for k in counts if ":" in k and counts[k] > before[k]), kernel)
-                self.check(self.path, self.phase, label, kernel, fn, args, kwargs, out)
-                self.launches.update(counts)
-            return out
+            with self.lock:
+                before = dict(self.launches)
+                out = fn(*args, **kwargs)
+                if self.phase is not None:
+                    counts = dict(self.launches)
+                    label = next((k for k in counts if ":" in k and counts[k] > before[k]),
+                                 kernel)
+                    self.check(self.path, self.phase, label, kernel, fn, args, kwargs, out)
+                    self.launches.update(counts)
+                return out
         return wrapped
 
 
@@ -321,7 +361,12 @@ def event_ms(torch, fn, reps: int) -> float:
     an idle card ran up to 3x slow while its clock came up).  The timed
     launches are queued behind a 10 ms device-side sleep, so that they run
     back to back: a kernel shorter than its wrapper's host time would
-    otherwise be timed at the host's launch rate."""
+    otherwise be timed at the host's launch rate.  The cyclic garbage
+    collector is off while they are queued: one of its full passes over
+    this process's objects outlasts the sleep, and the device then waits
+    for the host inside the timed window."""
+    import gc
+
     warm_until = time.perf_counter() + 0.01
     fn()
     torch.cuda.synchronize()
@@ -330,35 +375,62 @@ def event_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(0.01 * 1.98e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda._sleep(int(0.01 * 1.98e9))
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
 
 
-def profile_steps(torch, fn, steps: int, step_ms: float) -> dict:
+def profile_steps(torch, fn, steps: int, step_ms: float, all_threads: bool = False) -> dict:
     """Device time by kernel over `steps` steady steps (torch.profiler's
     device-side events only, so an operator and its kernel are not counted
-    twice) and the device's busy share of the unprofiled step time."""
+    twice) and the device's busy share of the unprofiled step time.
+    all_threads: record the host ranges of every thread (the ranks of a
+    ThreadGroup), where this torch's profiler offers it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kw = {}
+    if all_threads:
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+
+            kw["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
+        except (ImportError, TypeError):
+            pass
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
+    events = prof.key_averages()
+    # with every thread recorded the "gst_exchange" ranges also come back as
+    # device-side annotation rows, spanning their kernels: not a kernel
     rows = [{"name": e.key[:80], "calls_per_step": e.count / steps,
              "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in events if e.device_type == DeviceType.CUDA and e.key != "gst_exchange"]
     rows.sort(key=lambda r: -r["device_ms_per_step"])
     device_ms = sum(r["device_ms_per_step"] for r in rows)
-    return {"steps": steps, "step_ms": step_ms, "device_ms_per_step": device_ms,
-            "device_busy_share": device_ms / step_ms, "by_kernel": rows}
+    out = {"steps": steps, "step_ms": step_ms, "device_ms_per_step": device_ms,
+           "device_busy_share": device_ms / step_ms, "by_kernel": rows}
+    # a ThreadGroup's exchange copies (parallel/comm.py's "gst_exchange"
+    # ranges): the device time of the copies launched inside them, a row of
+    # their own (their kernels are among the rows above too)
+    ex = [e for e in events if e.key == "gst_exchange"]
+    if ex:
+        out["exchange_copies"] = {"calls_per_step": ex[0].count / steps,
+                                  "device_ms_per_step": ex[0].device_time_total / 1e3 / steps}
+    return out
 
 
 def tensors_of(fn_name, args, kwargs):
@@ -435,10 +507,36 @@ def needed_inputs(kernel, args, kwargs):
     return args, kwargs, None
 
 
+def _arg(args, kwargs, i, name, default=None):
+    return args[i] if len(args) > i else kwargs.get(name, default)
+
+
 def work(kernel, fn_name, args, kwargs, result):
     """(bytes, 32-bit IMADs) the call needs: every input read once, every
     output written once, and the integer multiplies of its arithmetic."""
     outs = result if isinstance(result, tuple) else (result,)
+    if fn_name == "ntt_sub_row":
+        # a chunk's stages read the chunk's twiddle slices (w and its Shoup
+        # dual, chunk entries a limb), the chunk, and write it
+        x = args[0]
+        chunk, L = x.shape[-1], x.shape[-2]
+        nbytes = bytes_once([x]) + bytes_once(outs) + 2 * L * chunk * 8
+        ops = (x.numel() // 2) * (chunk.bit_length() - 1) * IMAD_SHOUP
+        return nbytes, ops
+    if fn_name == "ntt_sp_exchange":
+        # own and partner chunk in, one chunk out, one twiddle pair a limb;
+        # one Shoup product a coefficient on every rank (the upper rank's
+        # product, the lower's n^-1 fold or its forward product)
+        own, partner = args[0], args[1]
+        nbytes = bytes_once([own]) + bytes_once([partner]) + bytes_once(outs) + 16 * own.shape[-2]
+        return nbytes, own.numel() * IMAD_SHOUP
+    if fn_name == "ntt_sp_rows":
+        y, chunks = args[0], _arg(args, kwargs, 2, "chunks")
+        inverse = _arg(args, kwargs, 3, "inverse")
+        L = y.shape[-3]
+        nbytes = bytes_once([y]) + bytes_once(outs) + 16 * L * (chunks - 1)
+        stages = chunks.bit_length() - 1 + (1 if inverse else 0)  # + the n^-1 fold
+        return nbytes, (y.numel() // 2) * stages * IMAD_SHOUP
     need_args, need_kwargs, live_k = needed_inputs(kernel, args, kwargs)
     nbytes = bytes_once(tensors_of(fn_name, need_args, need_kwargs)) + bytes_once(outs)
     if kernel == "ntt":
@@ -558,12 +656,119 @@ def steady(torch, fn, count: int):
     return count * iters / dt, iters, dt
 
 
+def _nccl_context(T, job, device):
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(job["n"])
+    parms.set_coeff_modulus(T.CoeffModulus.create(job["n"], job["bits"]))
+    parms.set_n_special_primes(job["nsp"])
+    parms.set_random_seed(tuple(job["seed"]))
+    return T.SealContext(parms, sec_level=T.SecLevelType.none, device=device)
+
+
+def _nccl_step(group, job):
+    """One rank of the NCCL phase (a process of its own, on card `rank`):
+    the csp4 or limb4 step on this rank's shard of job["a"], its first
+    step's collectives, and the mean ms of job["reps"] more steps."""
+    import torch
+    import torch.distributed as dist
+
+    import gemini_seal_tpu_torch as T
+    from gemini_seal_tpu_torch.ops.keyswitch import KeySwitchPlan
+    from gemini_seal_tpu_torch.parallel import keyswitch_sp, pipeline_csp
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ctx = _nccl_context(T, job, dev)
+    plan = KeySwitchPlan(ctx, ctx.first_parms_id)
+    r, C = group.rank, group.size
+    a, key = job["a"], job["key"]
+    if job["kind"] == "csp4":
+        b = a.shape[-1] // C
+        x = a[..., r * b:(r + 1) * b].contiguous().to(dev)
+        k = key[..., r * b:(r + 1) * b].contiguous().to(dev)
+
+        def step():
+            return pipeline_csp.ckks_mul_relin_rescale_coeff_sharded(x, x, k, plan, group)
+    else:
+        b = a.shape[-2] // C
+        x = a[..., r * b:(r + 1) * b, :].contiguous().to(dev)
+        k = key.to(dev)
+
+        def step():
+            return keyswitch_sp.ckks_mul_relin_rescale_limb_sharded(x, x, k, plan, group)
+    out = step()
+    torch.cuda.synchronize()
+    stats = group.stats.as_dict()
+    dist.barrier()
+    t1 = time.perf_counter()
+    for _ in range(job["reps"]):
+        step()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return {"out": out.cpu(), "step_ms": (time.perf_counter() - t1) * 1e3 / job["reps"],
+            "collectives": stats, "card": torch.cuda.get_device_name(dev)}
+
+
+def nccl_phase(torch, T, device, card, rehearsal) -> None:
+    """The csp4 (config 4) and limb4 steps at batch 16 over NCCL, one spawned
+    process per card on four cards, held bit for bit to the port's
+    single-card step on card 0.  With fewer cards it says that it did not
+    run, and why."""
+    cards = 0 if rehearsal else torch.cuda.device_count()
+    if cards < 4:
+        emit({"phase": "nccl", "ran": False, "cards": cards,
+              "reason": f"{cards} card(s) on this machine: the NCCL group runs one process "
+                        f"per card on four cards; nothing stands in for it"})
+        return
+    import numpy as np
+
+    from gemini_seal_tpu_torch.parallel.comm import spawn
+
+    jobs = {"ckks_mul_relin_rescale_csp4_n16384": {
+                "kind": "csp4", "n": 16384, "bits": [50, 40, 40, 40, 40, 50], "nsp": 1,
+                "seed": list(range(8)), "scale": 2.0 ** 40},
+            "ckks_mul_relin_rescale_limb4_n4096": {
+                "kind": "limb4", "n": 4096, "bits": [30] * 10, "nsp": 2,
+                "seed": list(range(91, 99)), "scale": 2.0 ** 28}}
+    for path, job in jobs.items():
+        t0 = time.perf_counter()
+        ctx = _nccl_context(T, job, device)
+        kg = T.KeyGenerator(ctx, device=device)
+        enc = T.Encryptor(ctx, kg.public_key(), device=device)
+        cod = T.CKKSEncoder(ctx, device=device)
+        v = np.random.default_rng(2030).uniform(-1.0, 1.0, job["n"] // 2)
+        ct = enc.encrypt(cod.encode(v.tolist(), job["scale"]))
+        a = ct.data.expand((16,) + tuple(ct.data.shape)).contiguous()
+        rk = kg.relin_keys().stacked(2)
+        want = T.build_ckks_mul_relin_rescale(ctx, device=device)(a, a, rk)
+        job.update(a=a.cpu(), key=rk.cpu(), reps=20)
+        res = spawn(_nccl_step, 4, "nccl", job)
+        outs = [r[0]["out"] for r in res]
+        if job["kind"] == "csp4":
+            got = torch.cat(outs, -1)
+            equal = bool(torch.equal(got, want.cpu()))
+        else:
+            got = torch.cat(outs, -2)
+            equal = bool(torch.equal(got[..., :-1, :], want.cpu())
+                         and (got[..., -1, :] == 0).all())
+        emit({"phase": "nccl", "ran": True, "path": path, "ranks": 4, "group": "nccl",
+              "cards": 4, "batch": 16, "equal_to_single_card": equal,
+              "step_ms_by_rank": [r[0]["step_ms"] for r in res],
+              "collectives": res[0][0]["collectives"], "cards_seen": [r[0]["card"] for r in res],
+              "seconds": time.perf_counter() - t0, "card": card})
+        if not equal:
+            raise AssertionError(f"{path} over NCCL differs from the single-card step")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the same phases at N=1024 (the refresh at N=128), batch 2, "
                          "two rotations, on the CPU through the plain versions (no result "
                          "line)")
+    ap.add_argument("--nccl-only", action="store_true",
+                    help="on a machine with four cards: build the kernels and run only the "
+                         "NCCL phase (the csp4 and limb4 steps, one process per card, against "
+                         "the single-card step)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -574,6 +779,11 @@ def main(argv=None) -> int:
         return 1
 
     import gemini_seal_tpu_torch as T
+    # the schedules' modules before the recorder wraps the kernels where
+    # each module holds them
+    import gemini_seal_tpu_torch.parallel.behz_sp  # noqa: F401
+    import gemini_seal_tpu_torch.parallel.bootstrap_sp  # noqa: F401
+    import gemini_seal_tpu_torch.parallel.pipeline_csp  # noqa: F401
     from gemini_seal_tpu_torch.ops import cuda
     from gemini_seal_tpu_torch.ops import ntt as ntt_ops
     from gemini_seal_tpu_torch.ops.backend import plain_versions, to_numpy, to_tensor
@@ -605,7 +815,17 @@ def main(argv=None) -> int:
               "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                           for k, v in report.items()}})
 
-    # 3. the twelve paths, each once, with the counters from 0 ------------------
+    if args.nccl_only:
+        if torch.cuda.device_count() < 4:
+            print("chip_smoke: --nccl-only needs four cards", file=sys.stderr)
+            return 1
+        nccl_phase(torch, T, device, card, rehearsal)
+        emit({"ok": True, "nccl_only": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
+
+    # 3. the paths, each once, with the counters from 0 ---------------------------
     # (4. checks and times each kernel call as it happens: check_call)
     paths = {}
     phase_launches = {}
@@ -741,7 +961,10 @@ def main(argv=None) -> int:
         missing = [k for k in PATH_KERNELS[path]
                    if launches[k] == 0 or not any(by_label(f)[k] for f in forms)]
         if path.startswith("bfv"):
-            missing += [f"{k} ({ph})" for ph, ks in PHASE_KERNELS.items() for k in ks
+            # the sharded BEHZ path decrypts config 3's inputs, encrypted there
+            phases = {ph: ks for ph, ks in PHASE_KERNELS.items()
+                      if ph != "encode_encrypt" or path != "bfv_mul_relin_behz4_n8192"}
+            missing += [f"{k} ({ph})" for ph, ks in phases.items() for k in ks
                         if phase_launches[ph][k] == 0]
         if not rehearsal and missing:
             raise AssertionError(f"kernels not launched on {path}: {missing}")
@@ -1458,6 +1681,261 @@ def main(argv=None) -> int:
         batch=b_d, checks=checks_d)
     if not all(checks_d.values()):
         raise AssertionError(f"device_evaluator_n8192: {checks_d}")
+
+    # 3q-v. the multi-device schedules of parallel/: C = 4 ranks of a
+    # ThreadGroup (threads of this process) on the one card, each held bit
+    # for bit to the port's single-card path on the same inputs
+    from gemini_seal_tpu_torch.parallel import behz_sp as pbehz
+    from gemini_seal_tpu_torch.parallel import bootstrap_sp as pboot
+    from gemini_seal_tpu_torch.parallel import keyswitch_sp as pks
+    from gemini_seal_tpu_torch.parallel import ntt_sp as psp
+    from gemini_seal_tpu_torch.parallel import pipeline_csp as pcsp
+    from gemini_seal_tpu_torch.parallel.comm import ThreadGroup, run_spmd
+
+    C4 = 4
+    team = ThreadGroup(C4, device, lock=recorder.lock)
+    group_of = {"ranks": C4, "group": "threads", "cards": 1}
+    team_stats = {}
+
+    def chunks_of(x):
+        b = x.shape[-1] // C4
+        return [x[..., r * b:(r + 1) * b].contiguous() for r in range(C4)]
+
+    def rows_of(x):
+        b = x.shape[-2] // C4
+        return [x[..., r * b:(r + 1) * b, :].contiguous() for r in range(C4)]
+
+    def spmd(body, *per_rank):
+        """One sharded call on the team; its collectives (rank 0's, the
+        ranks' agree) kept under the running path."""
+        team.reset()
+        out = run_spmd(body, team, *per_rank)
+        if recorder.phase is not None:
+            team_stats.setdefault(recorder.path, []).append(team.stats[0].as_dict())
+        return out
+
+    def ntt_sp_path(path, x, tables):
+        """The coefficient-sharded NTT of x both ways in both forms; every
+        result must equal K1's transform of the whole rows."""
+        t0 = begin(path)
+        set_phase("step")
+        xc = chunks_of(x)
+
+        def body(g, xl):
+            return [psp.ntt_forward_sharded(xl, tables, g), psp.ntt_inverse_sharded(xl, tables, g),
+                    psp.ntt_forward_sharded_4step(xl, tables, g),
+                    psp.ntt_inverse_sharded_4step(xl, tables, g)]
+
+        outs, per_step = count_step(spmd, body, xc)
+        set_phase("reference")
+        want_f, want_i = ntt_ops.ntt_forward(x, tables), ntt_ops.ntt_inverse(x, tables)
+        equal = {name: bool(torch.equal(torch.cat([o[k] for o in outs], -1), want))
+                 for k, (name, want) in enumerate((("hypercube_forward", want_f),
+                                                   ("hypercube_inverse", want_i),
+                                                   ("four_step_forward", want_f),
+                                                   ("four_step_inverse", want_i)))}
+        del outs, want_f, want_i
+        end(path, t0, per_step, **group_of, input_shape=list(x.shape),
+            collectives=team_stats[path][-1], equal_to_single_card=equal)
+        if not all(equal.values()):
+            raise AssertionError(f"{path} differs from K1's transform: {equal}")
+        return lambda: spmd(body, xc)
+
+    # 3q. ntt_sp4_n65536: the N=65536 cell's [16, 2, 4, 65536] residues
+    ntt_sp_step6 = ntt_sp_path("ntt_sp4_n65536", x6, cd6.ntt_tables)
+    # 3r. ntt_sp4_n16384: config 4's tables and step input
+    ntt_sp_step4 = ntt_sp_path("ntt_sp4_n16384", ntt4, cd4.ntt_tables)
+
+    # 3s. ckks_mul_relin_rescale_csp4_n16384: config 4 on the coefficient-
+    # sharded pipeline (four-step NTTs), then one rotation at batch 16
+    t0 = begin("ckks_mul_relin_rescale_csp4_n16384")
+    set_phase("keygen")
+    tool4 = cd4.galois_tool
+    elt4 = tool4.get_elt_from_step(1)
+    gk4 = kg4.galois_keys([elt4]).stacked(elt4)
+    plan4 = KeySwitchPlan(ctx4, cd4.parms_id)
+    keygen_done("ckks_mul_relin_rescale_csp4_n16384", t0)
+    set_phase("step")
+    b4r = max(batch // 8, 2)
+    a4c, rk4c, gk4c, a4rc = chunks_of(a4), chunks_of(rk4), chunks_of(gk4), chunks_of(a4[:b4r])
+
+    def csp_mrr(ac, kc):
+        return spmd(lambda g, x, k: pcsp.ckks_mul_relin_rescale_coeff_sharded(x, x, k, plan4, g),
+                    ac, kc)
+
+    def csp_rot(ac, kc):
+        return spmd(lambda g, x, k: pcsp.ckks_rotate_coeff_sharded(x, k, elt4, tool4, plan4, g),
+                    ac, kc)
+
+    outs, per_step = count_step(csp_mrr, a4c, rk4c)
+    rot_outs, per_step_rot = count_step(csp_rot, a4rc, gk4c)
+    got4 = torch.cat(outs, -1)
+    rot4 = torch.cat(rot_outs, -1)
+    del outs, rot_outs
+    set_phase("reference")
+    rot4_single = T.build_ckks_rotate(ctx4, 1, device=device)
+    equal = {"mul_relin_rescale": bool(torch.equal(got4, step4(a4, a4, rk4))),
+             "rotate": bool(torch.equal(rot4, rot4_single(a4[:b4r], gk4)))}
+    set_phase("decrypt_decode")
+    err = max(max_err(encoder4.decode(dec4.decrypt(T.Ciphertext(
+        got4[b], cd4.next_context_data.parms_id, True, scale4_out))), v4 * v4)
+        for b in (0, batch - 1))
+    rot_err = max_err(encoder4.decode(dec4.decrypt(T.Ciphertext(rot4[-1].contiguous(),
+                                                                cd4.parms_id, True, scale4))),
+                      np.roll(v4, -1))
+    end("ckks_mul_relin_rescale_csp4_n16384", t0, [per_step, per_step_rot], **group_of,
+        out_shape=list(got4.shape), rotate_batch=b4r,
+        collectives={"mul_relin_rescale": team_stats[recorder.path][0],
+                     "rotate": team_stats[recorder.path][1]},
+        equal_to_single_card=equal, max_abs_decode_err=err, rotate_max_abs_decode_err=rot_err)
+    if not (all(equal.values()) and err < 1e-4 and rot_err < 1e-4):
+        raise AssertionError(f"ckks_mul_relin_rescale_csp4_n16384: {equal}, decodes {err} from "
+                             f"v^2 and {rot_err} from v rotated by one")
+    del got4, rot4
+
+    # 3t. ckks_mul_relin_rescale_limb4_n4096: the one-gather step at the JAX
+    # package's realistic serving shape (N=4096, [30] x 10, two special
+    # primes: n_ct = 8, two rows a rank; the rehearsal: N=256), batch 128,
+    # then the hoisted rotations by steps 1..8 at batch 16
+    n_l = 256 if rehearsal else 4096
+    scale_l = 2.0 ** 28
+    steps_l = list(range(1, 3 if rehearsal else 9))
+    t0 = begin("ckks_mul_relin_rescale_limb4_n4096")
+    set_phase("keygen")
+    parms_l = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms_l.set_poly_modulus_degree(n_l)
+    parms_l.set_coeff_modulus(T.CoeffModulus.create(n_l, [30] * 10))
+    parms_l.set_n_special_primes(2)
+    parms_l.set_random_seed(tuple(range(91, 99)))
+    ctx_l = T.SealContext(parms_l, sec_level=T.SecLevelType.none, device=device)
+    kg_l = T.KeyGenerator(ctx_l, device=device)
+    cd_l = ctx_l.first_context_data()
+    tool_l = cd_l.galois_tool
+    elts_l = tool_l.get_elts_from_steps(sorted(set(steps_l) | set(range(1, 8))))
+    gks_l = kg_l.galois_keys(elts_l)
+    rk_l = kg_l.relin_keys().stacked(2)
+    rot_elts_l = tool_l.get_elts_from_steps(steps_l)
+    rot_keys_l = gks_l.stacked(*rot_elts_l)
+    plan_l = KeySwitchPlan(ctx_l, cd_l.parms_id)
+    keygen_done("ckks_mul_relin_rescale_limb4_n4096", t0)
+    set_phase("encode_encrypt")
+    enc_l = T.Encryptor(ctx_l, kg_l.public_key(), device=device)
+    dec_l = T.Decryptor(ctx_l, kg_l.secret_key, device=device)
+    cod_l = T.CKKSEncoder(ctx_l, device=device)
+    v_l = np.random.default_rng(2029).uniform(-1.0, 1.0, n_l // 2)
+    ct_l = enc_l.encrypt(cod_l.encode(v_l.tolist(), scale_l))
+    a_l = ct_l.data.expand((batch,) + tuple(ct_l.data.shape)).contiguous()
+    b_lr = rot_batch
+    set_phase("step")
+    a_lc, a_lrc = rows_of(a_l), rows_of(a_l[:b_lr])
+
+    def limb_mrr(ac):
+        return spmd(lambda g, x: pks.ckks_mul_relin_rescale_limb_sharded(x, x, rk_l, plan_l, g),
+                    ac)
+
+    def limb_rot(ac):
+        return spmd(lambda g, x: pks.rotate_many_limb_sharded(x, rot_keys_l, rot_elts_l, tool_l,
+                                                              plan_l, g), ac)
+
+    outs, per_step = count_step(limb_mrr, a_lc)
+    rot_outs, per_step_rot = count_step(limb_rot, a_lrc)
+    got_l = torch.cat(outs, -2)
+    rot_l = torch.cat(rot_outs, -2)                      # [b, R, 2, n_ct, N]
+    del outs, rot_outs
+    set_phase("reference")
+    n_ct_l = plan_l.n_ct_rns
+    mrr_l = T.build_ckks_mul_relin_rescale(ctx_l, device=device)
+    rmany_l = T.build_ckks_rotate_many(ctx_l, steps_l, device=device)
+    equal = {"mul_relin_rescale": bool(torch.equal(got_l[..., : n_ct_l - 1, :],
+                                                   mrr_l(a_l, a_l, rk_l))),
+             "q_last_row_zero": bool((got_l[..., n_ct_l - 1, :] == 0).all()),
+             "rotate_many": bool(torch.equal(rot_l.movedim(-4, 0),
+                                             rmany_l(a_l[:b_lr], rot_keys_l)))}
+    set_phase("decrypt_decode")
+    scale_l_out = scale_l * scale_l / cd_l.parms.coeff_modulus[-1].value
+    err = max(max_err(cod_l.decode(dec_l.decrypt(T.Ciphertext(
+        got_l[b, :, : n_ct_l - 1].contiguous(), cd_l.next_context_data.parms_id, True,
+        scale_l_out))), v_l * v_l) for b in (0, batch - 1))
+    rot_err = max(max_err(cod_l.decode(dec_l.decrypt(T.Ciphertext(
+        rot_l[-1, r].contiguous(), cd_l.parms_id, True, scale_l))), np.roll(v_l, -s))
+        for r, s in enumerate(steps_l))
+    end("ckks_mul_relin_rescale_limb4_n4096", t0, [per_step, per_step_rot], **group_of,
+        n=n_l, out_shape=list(got_l.shape), rotate_batch=b_lr, rotate_steps=steps_l,
+        collectives={"mul_relin_rescale": team_stats[recorder.path][0],
+                     "rotate_many": team_stats[recorder.path][1]},
+        equal_to_single_card=equal, max_abs_decode_err=err, rotate_max_abs_decode_err=rot_err)
+    # 30-bit primes at scale 2^28: the key switches' noise sets these bounds
+    if not (all(equal.values()) and err < 1e-2 and rot_err < 1e-2):
+        raise AssertionError(f"ckks_mul_relin_rescale_limb4_n4096: {equal}, decodes {err} from "
+                             f"v^2 and {rot_err} from the rotated v")
+    del got_l, rot_l
+
+    # 3u. bfv_mul_relin_behz4_n8192: config 3's ring (n_ct = 4, one q row
+    # and one B row a rank) through behz_sp at batch 128
+    bctx3, brk3, ab3, chain3, decodes3 = cfg3
+    t0 = begin("bfv_mul_relin_behz4_n8192")
+    set_phase("step")
+    first3 = bctx3.first_parms_id
+    plan3 = KeySwitchPlan(bctx3, first3)
+    ab3c = rows_of(ab3)
+
+    def behz_mul(ac):
+        return spmd(lambda g, x: pbehz.bfv_mul_relin_limb_sharded(x, x, brk3, bctx3, g,
+                                                                  plan=plan3), ac)
+
+    outs, per_step = count_step(behz_mul, ab3c)
+    got3 = torch.cat(outs, -2)
+    del outs
+    set_phase("reference")
+    equal = {"mul_relin": bool(torch.equal(got3, T.build_bfv_mul_relin(bctx3, device=device)(
+        ab3, ab3, brk3)))}
+    set_phase("decrypt_decode")
+    exact = decodes3(got3[0], first3) and decodes3(got3[-1], first3)
+    end("bfv_mul_relin_behz4_n8192", t0, per_step, **group_of, out_shape=list(got3.shape),
+        collectives=team_stats[recorder.path][0], equal_to_single_card=equal,
+        decode_exact=exact)
+    if not (all(equal.values()) and exact):
+        raise AssertionError(f"bfv_mul_relin_behz4_n8192: {equal}, decodes exactly: {exact}")
+    del got3
+
+    # 3v. matvec_limb4_n4096: the limb-sharded hoisted matvec (the
+    # bootstrap's C2S/S2C group form) of an 8x8 matrix (seed 1) at the
+    # limb4 ring, batch 16 (the rehearsal: 2)
+    t0 = begin("matvec_limb4_n4096")
+    set_phase("keygen")
+    slots_l = n_l // 2
+    M_l = np.random.default_rng(1).uniform(-0.5, 0.5, size=(8, 8))
+    diag_l = {d: [M_l[i % 8, (i + d) % 8] for i in range(slots_l)] for d in range(8)}
+    mv_keys_l = gks_l.stacked(*tool_l.get_elts_from_steps(list(range(1, 8))))
+    keygen_done("matvec_limb4_n4096", t0)
+    set_phase("encode_encrypt")
+    ct_m = enc_l.encrypt(cod_l.encode([0.5] * slots_l, scale_l))
+    a_m = ct_m.data.expand((rot_batch,) + tuple(ct_m.data.shape)).contiguous()
+    mv_sharded = pboot.build_ckks_matvec_limb_sharded(ctx_l, diag_l, scale_l, cod_l, C4,
+                                                      device=device)
+    set_phase("step")
+    a_mc = rows_of(a_m)
+
+    def limb_matvec(ac):
+        return spmd(lambda g, x: mv_sharded(g, x, mv_keys_l), ac)
+
+    outs, per_step = count_step(limb_matvec, a_mc)
+    got_m = torch.cat(outs, -2)
+    del outs
+    set_phase("reference")
+    mv_single = T.build_ckks_matvec(ctx_l, diag_l, scale_l, cod_l, device=device)
+    equal = {"matvec": bool(torch.equal(got_m, mv_single(a_m, mv_keys_l)))}
+    set_phase("decrypt_decode")
+    want_m = np.asarray([0.5 * M_l[i % 8].sum() for i in range(slots_l)])
+    err = max(max_err(cod_l.decode(dec_l.decrypt(T.Ciphertext(
+        got_m[b].contiguous(), ct_m.parms_id, True, scale_l * scale_l))), want_m)
+        for b in (0, rot_batch - 1))
+    end("matvec_limb4_n4096", t0, per_step, **group_of, out_shape=list(got_m.shape),
+        collectives=team_stats[recorder.path][0], equal_to_single_card=equal,
+        max_abs_decode_err=err)
+    if not (all(equal.values()) and err < 1e-2):
+        raise AssertionError(f"matvec_limb4_n4096: {equal}, decodes {err} from M x")
+    del got_m
     recorder.remove()
     for kernel, row in rows.items():
         emit({"phase": "kernel_check", "kernel": kernel, "equal": True, **row})
@@ -1601,6 +2079,57 @@ def main(argv=None) -> int:
     emit(drop)
     del drop_in, drop_out
 
+    # the BSGS matvec's giant-step permutation (K5 paired, pipelines.py:957-961)
+    # from one build_ckks_matvec_bsgs call at dense8x8's ring, batch 16: the
+    # call is captured as it happens, then held to its plain version and to
+    # torch.gather, and timed beside its bound
+    from gemini_seal_tpu_torch.models import pipelines as pipes
+    from gemini_seal_tpu_torch.ops.galois import galois_permute
+
+    bsgs8, bsgs_steps8 = T.build_ckks_matvec_bsgs(ctx8, diag8, 2.0 ** 40, encoder8, device=device)
+    bsgs_keys8 = kg8.galois_keys(tool8.get_elts_from_steps(bsgs_steps8)).stacked(
+        *tool8.get_elts_from_steps(bsgs_steps8))
+    giant_calls = []
+    orig_permute = pipes.galois_permute
+
+    def capture(x, tabs, moduli=None, paired=False):
+        out = orig_permute(x, tabs, moduli, paired)
+        if paired:
+            giant_calls.append((x, tabs, out))
+        return out
+
+    pipes.galois_permute = capture
+    try:
+        bsgs_out8, bsgs_launches = count_step(bsgs8, a8, bsgs_keys8)
+    finally:
+        pipes.galois_permute = orig_permute
+    gx, gtabs, gout = giant_calls[0]
+    with plain_versions():
+        if not torch.equal(galois_permute(gx, gtabs, paired=True), gout):
+            raise AssertionError("the BSGS giant-step permutation differs from its plain version")
+    glib = library_call(torch, gx, gtabs, paired=True)
+    if not torch.equal(glib().reshape(gout.shape), gout):
+        raise AssertionError("torch.gather differs from the BSGS giant-step permutation")
+    g_bytes, _ = work("galois", "galois_permute", (gx, gtabs), {"paired": True}, gout)
+    bsgs_err8 = max(max_err(encoder8.decode(dec8.decrypt(T.Ciphertext(
+        bsgs_out8[b].contiguous(), ct8.parms_id, True, 2.0 ** 80))), want8) for b in (0, b8 - 1))
+    giant = {"phase": "function", "function": "bsgs_giant_step_permutation",
+             "input_shape": list(gx.shape), "tables": list(gtabs.shape),
+             "rot_steps": bsgs_steps8, "calls_per_matvec": len(giant_calls),
+             "matvec_launches": {k: c for k, c in by_label(bsgs_launches).items() if c},
+             "matvec_max_abs_decode_err": bsgs_err8, "bytes": g_bytes,
+             "bound_ms": g_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "card": card}
+    if not bsgs_err8 < 1e-4:
+        raise AssertionError(f"the BSGS matvec decodes {bsgs_err8} from M x")
+    if not rehearsal:
+        giant["ms"] = event_ms(torch, lambda: galois_permute(gx, gtabs, paired=True), reps)
+        with plain_versions():
+            giant["plain_ms"] = event_ms(torch, lambda: galois_permute(gx, gtabs, paired=True),
+                                         reps)
+        giant["library_ms"] = event_ms(torch, glib, reps)
+    emit(giant)
+    del giant_calls, gx, gout, bsgs_out8
+
     # 6. steady state at each path's full batch --------------------------------
     # (path, metric, count per call, call, batch); a pair in one tuple is
     # timed in turns: A, B, A, B
@@ -1648,6 +2177,23 @@ def main(argv=None) -> int:
           lambda: mv8(a8_2, gk8), 2),
          ("dense8x8_n8192", "ckks_dense8x8_hoisted_n8192_layers_per_s", b8,
           lambda: mv8(a8, gk8), b8)),
+        # the schedules on four threads of the one card: the four transforms
+        # of an ntt_sp4 step count their rows each
+        ("ntt_sp4_n65536", "ntt_sp4_n65536_rows_per_s", 4 * x6.numel() // n6, ntt_sp_step6, b6),
+        ("ntt_sp4_n16384", "ntt_sp4_n16384_rows_per_s", 4 * ntt4.numel() // n4, ntt_sp_step4,
+         batch),
+        ("ckks_mul_relin_rescale_csp4_n16384", "ckks_mul_relin_rescale_csp4_n16384_ops_per_s",
+         batch, lambda: csp_mrr(a4c, rk4c), batch),
+        ("ckks_rotate_csp4_n16384", "ckks_rotate_csp4_n16384_ops_per_s", b4r,
+         lambda: csp_rot(a4rc, gk4c), b4r),
+        ("ckks_mul_relin_rescale_limb4_n4096", "ckks_mul_relin_rescale_limb4_n4096_ops_per_s",
+         batch, lambda: limb_mrr(a_lc), batch),
+        ("ckks_rotate_many_limb4_n4096", "ckks_rotate_many_limb4_n4096_rotations_per_s",
+         b_lr * len(steps_l), lambda: limb_rot(a_lrc), b_lr),
+        ("bfv_mul_relin_behz4_n8192", "bfv_mul_relin_behz4_n8192_ops_per_s", batch,
+         lambda: behz_mul(ab3c), batch),
+        ("matvec_limb4_n4096", "ckks_matvec8x8_limb4_n4096_layers_per_s", rot_batch,
+         lambda: limb_matvec(a_mc), rot_batch),
     ]
     keygen_of = {"mul_relin_rescale_sequential": "mul_relin_rescale",
                  "bfv_mul_relin_n8192": "bfv_mul_relin_chain",
@@ -1656,7 +2202,15 @@ def main(argv=None) -> int:
                  "bfv_rotate_many_prepermuted": "bfv_rotate_many",
                  "ntt_n16384": "ckks_mul_relin_rescale_n16384",
                  "ntt_fwd_n65536": "n65536", "ntt_inv_n65536": "n65536",
-                 "dense8x8_n8192_b2": "dense8x8_n8192"}
+                 "dense8x8_n8192_b2": "dense8x8_n8192", "ntt_sp4_n65536": "n65536",
+                 "ntt_sp4_n16384": "ckks_mul_relin_rescale_n16384",
+                 "ckks_rotate_csp4_n16384": "ckks_mul_relin_rescale_csp4_n16384",
+                 "ckks_rotate_many_limb4_n4096": "ckks_mul_relin_rescale_limb4_n4096",
+                 "bfv_mul_relin_behz4_n8192": "bfv_mul_relin_chain"}
+    sharded_paths = {"ntt_sp4_n65536", "ntt_sp4_n16384", "ckks_mul_relin_rescale_csp4_n16384",
+                     "ckks_rotate_csp4_n16384", "ckks_mul_relin_rescale_limb4_n4096",
+                     "ckks_rotate_many_limb4_n4096", "bfv_mul_relin_behz4_n8192",
+                     "matvec_limb4_n4096"}
     extra_of = {"bootstrap_n4096": {
         "max_err": err7, "levels_restored": levels_out7, "levels_consumed": levels7,
         "launches_per_refresh": sum(paths["bootstrap_n4096"]["launches_per_step"].values())}}
@@ -1668,13 +2222,17 @@ def main(argv=None) -> int:
                 torch.cuda.reset_peak_memory_stats()
                 rate, iters, dt = steady(torch, fn, count)
                 peak = torch.cuda.max_memory_allocated()
-                prof = profile_steps(torch, fn, 10, dt * 1e3 / iters)
+                prof = profile_steps(torch, fn, 10, dt * 1e3 / iters,
+                                     all_threads=path in sharded_paths)
+                extra = dict(extra_of.get(path, {}))
+                if path in sharded_paths:
+                    extra.update(group_of, exchange_copies=prof.get("exchange_copies"))
                 emit({"phase": "steady_state", "path": path, "metric": metric, "value": rate,
                       "batch": b, "turn": turn, "iters": iters, "seconds": dt,
                       "device_ms_per_step": prof["device_ms_per_step"],
                       "device_busy_share": prof["device_busy_share"],
                       "keygen_seconds": keygen_s[keygen_of.get(path, path)],
-                      "peak_device_bytes": peak, "card": card, **extra_of.get(path, {})})
+                      "peak_device_bytes": peak, "card": card, **extra})
                 emit({"phase": "profile", "path": path, "turn": turn, **prof})
         emit({"phase": "memory", "peak_device_bytes_with_checks_by_path":
               {p: v["peak_device_bytes_with_checks"] for p, v in paths.items()}, "card": card})
@@ -1738,6 +2296,10 @@ def main(argv=None) -> int:
                   "device_ms_per_ciphertext": prof["device_ms_per_step"] / count,
                   "device_busy_share": prof["device_busy_share"], "card": card})
 
+    # 6c. the schedules over NCCL, one process per card, when the machine has
+    # four cards (the one-card run above is four threads of this process)
+    nccl_phase(torch, T, device, card, rehearsal)
+
     # 7. kernels line and result line -----------------------------------------------
     replaces = {
         "ntt": "gemini_seal_tpu/ops/ntt.py:241 ntt_forward_lazy, :322 ntt_inverse_lazy",
@@ -1774,6 +2336,14 @@ def main(argv=None) -> int:
                       "negacyclic_mono_mul_poly",
         "infty_norm": "gemini_seal_tpu/ops/dyadic.py:135 poly_infty_norm",
         "elementwise:reduce64": "gemini_seal_tpu/ops/dyadic.py:102 modulo_poly_coeffs",
+        "ntt:sub_row": "gemini_seal_tpu/parallel/ntt_sp.py:56 _local_forward_stages; the "
+                       "inverse chunk-local stages :160-182, :336-355",
+        "ntt_sp": "gemini_seal_tpu/parallel/ntt_sp.py:106-119, :185-208 the hypercube cross "
+                  "stages, :259-272, :359-373 the four-step cross stages",
+        "ntt_sp:exchange": "gemini_seal_tpu/parallel/ntt_sp.py:106-119 ntt_forward_sharded's "
+                           "cross stages, :185-208 ntt_inverse_sharded's",
+        "ntt_sp:rows": "gemini_seal_tpu/parallel/ntt_sp.py:259-272 forward_4step_local's and "
+                       ":359-373 inverse_4step_local's cross stages",
     }
     sources = {k: f"gemini_seal_tpu_torch/csrc/{v[0]}" for k, v in cuda.KERNELS.items()}
     library_calls = {

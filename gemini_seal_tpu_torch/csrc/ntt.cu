@@ -33,6 +33,18 @@
 // launch reads and writes one buffer through restrict pointers.  A cluster
 // of CTAs sharing their rows over distributed shared memory would save the k
 // extra passes over device memory; not done yet.
+//
+// Mode sub_row (the coefficient-sharded NTT, gemini_seal_tpu/parallel/ntt_sp.py
+// _local_forward_stages :56-83 and the inverse local stages :160-182,
+// :336-355): the rows are one rank's chunks of 2^log_row coefficients out of
+// a ring of 2^log_n, and the chunk index j = d is an argument.  The same
+// bodies run the chunk-local stages with the twiddles the JAX loop takes
+// (forward: w[2^st + d 2^(st - log_c) + i], inverse: ofs(st) + d (chunk >>
+// (st + 1)) + i): forward after the cross stages (K11), with the canonical
+// reduction when asked; inverse before them, with neither the n^-1 fold nor a
+// reduction.  A chunk above 16384 coefficients (N=65536 on two ranks) runs
+// its first (forward) or last (inverse) log2(chunk / 16384) stages as
+// global-memory stage launches over the chunk, as the large-ring mode does.
 #include "modops.cuh"
 
 // the largest row that one block keeps in shared memory (128 KB)
@@ -40,12 +52,16 @@
 
 // The shared-memory body, one block per (sub-)row.  SPLIT = false is the
 // one-launch path (the whole row of 2^log_n, k = 0, j = 0 folded in).  SPLIT =
-// true does sub-row j of row (blockIdx.x >> k), 2^log_sub coefficients of a
-// row of 2^log_n, k = log_n - log_sub: forward after the k global stages,
-// inverse before them (so this body neither folds n^-1 nor reduces).
+// true does sub-row j of the ring, 2^log_sub coefficients of a ring of 2^log_n,
+// k = log_n - log_sub: forward after the k earlier stages, inverse before the
+// k later ones (so this body neither folds n^-1 nor reduces).  Block b works
+// on the b-th run of 2^log_sub coefficients of `in`: tensor row b >> k_blk
+// and sub-row j = j_base + (b mod 2^k_blk) (the large-ring mode: k_blk = k,
+// j_base = 0; sub_row: a rank's chunk of 2^(log_sub + k_blk), j_base =
+// d << k_blk).
 template <bool INVERSE, bool SPLIT>
 __global__ void ntt_kernel(u64* __restrict__ out, const u64* __restrict__ in, int L, int log_n,
-                           int log_sub_arg, const u64* __restrict__ w,
+                           int log_sub_arg, int k_blk, int j_base, const u64* __restrict__ w,
                            const u64* __restrict__ ws, const u64* __restrict__ mod,
                            const u64* __restrict__ inv_n, const u64* __restrict__ inv_n_s,
                            int canonical) {
@@ -55,9 +71,9 @@ __global__ void ntt_kernel(u64* __restrict__ out, const u64* __restrict__ in, in
     const int sn = 1 << log_sub;
     const int half_sn = sn >> 1;
     const int n = 1 << log_n;
-    const long long sub = blockIdx.x;               // row << k | j
-    const long long row = sub >> k;
-    const int j = SPLIT ? (int)(sub & ((1 << k) - 1)) : 0;
+    const long long sub = blockIdx.x;               // row << k_blk | j - j_base
+    const long long row = SPLIT ? sub >> k_blk : sub;
+    const int j = SPLIT ? j_base + (int)(sub & ((1 << k_blk) - 1)) : 0;
     const int limb = (int)(row % L);
     const u64* src = in + sub * (long long)sn;
     u64* dst = out + sub * (long long)sn;
@@ -123,30 +139,33 @@ __global__ void ntt_kernel(u64* __restrict__ out, const u64* __restrict__ in, in
     }
 }
 
-// One radix-2 stage over whole rows in global memory, one thread per
-// butterfly (rows * N/2 of them): forward stage st of a large ring (st < k),
-// or inverse stage st (st >= log N - k; the last folds n^-1 and, when asked,
-// reduces to canonical).  In place when out == in: a thread reads and writes
-// only its own two coefficients.
+// One radix-2 stage over rows of 2^log_row coefficients in global memory, one
+// thread per butterfly (rows * 2^(log_row - 1) of them): forward stage st of
+// a large ring (st < k), or inverse stage st (st >= log N - k; the last folds
+// n^-1 and, when asked, reduces to canonical).  The rows are whole rings
+// (log_row = log N, g0 = 0) or, in mode sub_row, a rank's chunks: the stage's
+// twiddle groups then start at g0 = d x (groups per chunk).  In place when
+// out == in: a thread reads and writes only its own two coefficients.
 template <bool INVERSE>
 __global__ void ntt_stage_kernel(u64* out, const u64* in, long long total, int L, int log_n,
-                                 int st, const u64* __restrict__ w,
+                                 int log_row, int st, int g0, const u64* __restrict__ w,
                                  const u64* __restrict__ ws, const u64* __restrict__ mod,
                                  const u64* __restrict__ inv_n,
                                  const u64* __restrict__ inv_n_s, int canonical) {
     const int n = 1 << log_n;
-    const int half_n = n >> 1;
+    const int rn = 1 << log_row;
+    const int half_rn = rn >> 1;
     for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < total;
          idx += (long long)gridDim.x * blockDim.x) {
-        const long long row = idx >> (log_n - 1);
-        const int b = (int)(idx & (half_n - 1));
+        const long long row = idx >> (log_row - 1);
+        const int b = (int)(idx & (half_rn - 1));
         const int limb = (int)(row % L);
         const u64 p = mod[limb];
         const u64 two_p = 2 * p;
         const u64* wl = w + (long long)limb * n;
         const u64* wsl = ws + (long long)limb * n;
-        const u64* x = in + row * (long long)n;
-        u64* y = out + row * (long long)n;
+        const u64* x = in + row * (long long)rn;
+        u64* y = out + row * (long long)rn;
         if (!INVERSE) {
             const int m = 1 << st;
             const int h_log = log_n - st - 1;
@@ -155,7 +174,8 @@ __global__ void ntt_stage_kernel(u64* out, const u64* in, long long total, int L
             const int i1 = i0 + (1 << h_log);
             u64 x0 = x[i0];
             x0 = x0 >= two_p ? x0 - two_p : x0;
-            const u64 v = mul_mod_shoup_lazy(x[i1], wl[m + i], wsl[m + i], p);
+            const int tw = m + g0 + i;
+            const u64 v = mul_mod_shoup_lazy(x[i1], wl[tw], wsl[tw], p);
             y[i0] = x0 + v;
             y[i1] = x0 - v + two_p;
         } else {
@@ -170,7 +190,8 @@ __global__ void ntt_stage_kernel(u64* out, const u64* in, long long total, int L
             u64 tt = a0 + a1;
             tt = tt >= two_p ? tt - two_p : tt;
             const u64 d = a0 - a1 + two_p;
-            u64 u = mul_mod_shoup_lazy(d, wl[ofs + i], wsl[ofs + i], p);
+            const int tw = ofs + g0 + i;
+            u64 u = mul_mod_shoup_lazy(d, wl[tw], wsl[tw], p);
             if (st == log_n - 1) {
                 tt = mul_mod_shoup_lazy(tt, inv_n[limb], inv_n_s[limb], p);
                 if (canonical) {
@@ -187,9 +208,9 @@ __global__ void ntt_stage_kernel(u64* out, const u64* in, long long total, int L
 // Launch the shared-memory body over `blocks` (sub-)rows of 2^log_sub.
 template <bool INVERSE, bool SPLIT>
 static cudaError_t launch_rows(u64* out, const u64* in, unsigned blocks, int L, int log_n,
-                               int log_sub, const u64* w, const u64* ws, const u64* mod,
-                               const u64* inv_n, const u64* inv_n_s, int canonical,
-                               cudaStream_t st) {
+                               int log_sub, int k_blk, int j_base, const u64* w, const u64* ws,
+                               const u64* mod, const u64* inv_n, const u64* inv_n_s,
+                               int canonical, cudaStream_t st) {
     const int sn = 1 << log_sub;
     const size_t smem = (size_t)sn * sizeof(u64);
     cudaError_t err = cudaFuncSetAttribute(ntt_kernel<INVERSE, SPLIT>,
@@ -197,50 +218,65 @@ static cudaError_t launch_rows(u64* out, const u64* in, unsigned blocks, int L, 
                                            (int)smem);
     if (err != cudaSuccess) return err;
     ntt_kernel<INVERSE, SPLIT><<<blocks, sn / 2 < 1024 ? sn / 2 : 1024, smem, st>>>(
-        out, in, L, log_n, log_sub, w, ws, mod, inv_n, inv_n_s, canonical);
+        out, in, L, log_n, log_sub, k_blk, j_base, w, ws, mod, inv_n, inv_n_s, canonical);
     return cudaSuccess;
 }
 
-// out, in: [rows, N] with rows = batch * L (limb = row % L); tables [L, N],
-// mod / inv_n / inv_n_s [L]; 2 <= N <= 65536.  N <= 16384 is one launch; a
-// larger N is log2(N / 16384) stage launches and one sub-row launch, and its
-// forward transform needs tmp, scratch of out's size, for the stages (the
-// sub-row launch reads it and writes out).  Returns cudaGetLastError() after
-// the last launch.
+// out, in: [rows, 2^log_row] with rows = batch * L (limb = row % L); tables
+// [L, N], mod / inv_n / inv_n_s [L]; 2 <= N <= 65536.
+//
+// log_row = log_n (sub_j = 0): the whole transform.  N <= 16384 is one
+// launch; a larger N is log2(N / 16384) stage launches and one sub-row
+// launch.
+// log_row < log_n (mode sub_row): the chunk-local stages of chunk sub_j of
+// 2^(log_n - log_row): forward stages log_n - log_row .. log_n - 1 (canonical
+// or lazy), or inverse stages 0 .. log_row - 1 (lazy only).
+//
+// The forward transform needs tmp, scratch of out's size, whenever a row is
+// above 16384 coefficients (the stage launches write it, the sub-row launch
+// reads it and writes out).  Returns cudaGetLastError() after the last launch.
 extern "C" int gst_ntt(void* out, const void* in, void* tmp, long long rows, long long L,
-                       long long log_n, const void* w, const void* ws,
-                       const void* mod, const void* inv_n, const void* inv_n_s,
-                       long long inverse, long long canonical, void* stream) {
-    if (log_n < 1 || log_n > 16) return (int)cudaErrorInvalidValue;
-    const int k = log_n > NTT_SHARED_LOG_N ? (int)log_n - NTT_SHARED_LOG_N : 0;
-    if (k > 0 && !inverse && tmp == nullptr) return (int)cudaErrorInvalidValue;
-    const int lg = (int)log_n, log_sub = lg - k;
-    const unsigned blocks = (unsigned)(rows << k);
+                       long long log_n, long long log_row, long long sub_j, const void* w,
+                       const void* ws, const void* mod, const void* inv_n,
+                       const void* inv_n_s, long long inverse, long long canonical,
+                       void* stream) {
+    if (log_n < 1 || log_n > 16 || log_row < 1 || log_row > log_n) return (int)cudaErrorInvalidValue;
+    const int pre = (int)(log_n - log_row);  // the stages that run elsewhere (cross stages)
+    if (sub_j < 0 || sub_j >= (1LL << pre) || (pre > 0 && inverse && canonical))
+        return (int)cudaErrorInvalidValue;
+    const int kc = log_row > NTT_SHARED_LOG_N ? (int)log_row - NTT_SHARED_LOG_N : 0;
+    if (kc > 0 && !inverse && tmp == nullptr) return (int)cudaErrorInvalidValue;
+    const int lg = (int)log_n, lr = (int)log_row, log_body = lr - kc;
+    const int j = (int)sub_j;
+    const unsigned blocks = (unsigned)(rows << kc);
     cudaStream_t st = (cudaStream_t)stream;
     const u64 *W = (const u64*)w, *WS = (const u64*)ws, *M = (const u64*)mod;
     const u64 *NI = (const u64*)inv_n, *NIS = (const u64*)inv_n_s;
     u64 *o = (u64*)out, *t = (u64*)tmp;
     const u64* x = (const u64*)in;
-    const long long bfly = rows * ((1LL << lg) / 2);
+    const long long bfly = rows * ((1LL << lr) / 2);
     const int sthreads = 256;
     cudaError_t err;
-    if (k == 0) {
-        err = inverse ? launch_rows<true, false>(o, x, blocks, (int)L, lg, lg, W, WS, M, NI,
-                                                 NIS, (int)canonical, st)
-                      : launch_rows<false, false>(o, x, blocks, (int)L, lg, lg, W, WS, M, NI,
-                                                  NIS, (int)canonical, st);
+    if (log_body == lg) {
+        err = inverse ? launch_rows<true, false>(o, x, blocks, (int)L, lg, lg, 0, 0, W, WS, M,
+                                                 NI, NIS, (int)canonical, st)
+                      : launch_rows<false, false>(o, x, blocks, (int)L, lg, lg, 0, 0, W, WS, M,
+                                                  NI, NIS, (int)canonical, st);
     } else if (!inverse) {
-        for (int s = 0; s < k; ++s)
+        // forward stage pre + s has 2^s twiddle groups in a chunk
+        for (int s = 0; s < kc; ++s)
             ntt_stage_kernel<false><<<grid_for(bfly, sthreads), sthreads, 0, st>>>(
-                t, s == 0 ? x : t, bfly, (int)L, lg, s, W, WS, M, NI, NIS, 0);
-        err = launch_rows<false, true>(o, t, blocks, (int)L, lg, log_sub, W, WS, M, NI, NIS,
-                                       (int)canonical, st);
+                t, s == 0 ? x : t, bfly, (int)L, lg, lr, pre + s, j << s, W, WS, M, NI, NIS, 0);
+        err = launch_rows<false, true>(o, kc > 0 ? t : x, blocks, (int)L, lg, log_body, kc,
+                                       j << kc, W, WS, M, NI, NIS, (int)canonical, st);
     } else {
-        err = launch_rows<true, true>(o, x, blocks, (int)L, lg, log_sub, W, WS, M, NI, NIS, 0,
-                                      st);
-        for (int s = log_sub; s < lg && err == cudaSuccess; ++s)
+        err = launch_rows<true, true>(o, x, blocks, (int)L, lg, log_body, kc, j << kc, W, WS,
+                                      M, NI, NIS, 0, st);
+        // inverse stage s has chunk >> (s + 1) twiddle groups in a chunk
+        for (int s = log_body; s < lr && err == cudaSuccess; ++s)
             ntt_stage_kernel<true><<<grid_for(bfly, sthreads), sthreads, 0, st>>>(
-                o, o, bfly, (int)L, lg, s, W, WS, M, NI, NIS, (int)canonical);
+                o, o, bfly, (int)L, lg, lr, s, j << (lr - s - 1), W, WS, M, NI, NIS,
+                (int)canonical);
     }
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();

@@ -592,7 +592,7 @@ def build_ckks_matvec(context: SealContext, diagonals, scale: float, encoder,
     R = len(rot_steps)
     if R:
         rot_tabs = tool.ntt_tables(elts)                                  # [R, N]
-        ptc = encoded[len(steps) - R:].unsqueeze(0)                       # [1, R, L, N]
+        ptc = torch.stack([plains[s] for s in rot_steps]).unsqueeze(0)    # [1, R, L, N]
         if fuse_moddown:
             pte = encoder.encode_stack([list(diagonals[s]) for s in rot_steps], scale,
                                        parms_id, plan.ext_moduli,

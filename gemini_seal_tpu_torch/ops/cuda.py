@@ -14,7 +14,9 @@ modes (``MODES``) also adds one under ``"kernel:mode"``, so that a check can
 tell that the mode ran: the large-ring NTT, the signed, paired and signed
 paired Galois permutations, the contraction with its input broadcast over
 the groups, the elementwise Barrett-64 reduction without a second operand,
-and the negacyclic shift with and without its monomial multiply.  A call
+the negacyclic shift with and without its monomial multiply, the NTT's
+chunk-local stages of the coefficient-sharded NTT (``sub_row``) and the two
+modes of its cross stages (``ntt_sp``: ``exchange``, ``rows``).  A call
 runs in at most one mode.
 """
 
@@ -49,7 +51,7 @@ _I = ctypes.c_int64
 # kernel name -> (source, C entry point, argtypes)
 KERNELS = {
     "ntt": ("ntt.cu", "gst_ntt", [
-        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
+        _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
     "tensor_product": ("tensor_product.cu", "gst_tensor_product", [
         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "contract": ("contract.cu", "gst_contract", [
@@ -64,15 +66,18 @@ KERNELS = {
     "negacyclic": ("negacyclic.cu", "gst_negacyclic", [
         _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "infty_norm": ("infty_norm.cu", "gst_infty_norm", [_P, _P, _P, _I, _I, _I, _P]),
+    "ntt_sp": ("ntt_sp.cu", "gst_ntt_sp", [
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
 }
 
 # kernel name -> the modes that a call names (see ``call``)
 MODES = {
-    "ntt": ("large_ring",),
+    "ntt": ("large_ring", "sub_row"),
     "galois": ("signed", "paired", "signed_paired"),
     "contract": ("broadcast",),
     "elementwise": ("reduce64",),
     "negacyclic": ("shift", "mono_mul"),
+    "ntt_sp": ("exchange", "rows"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -83,6 +88,7 @@ BUILD_REPORT: Dict[str, dict] = {}
 
 _FUNCS: Dict[str, object] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -168,14 +174,16 @@ def call(name: str, *args, mode=None) -> None:
     """Launch kernel `name` on the current stream; raise on a CUDA error.
 
     mode: None, or the call's mode of MODES[name], counted beside the
-    kernel's own count."""
+    kernel's own count.  The counts are kept under a lock: the ranks of a
+    parallel.comm.ThreadGroup launch from threads of one process."""
     fn = _func(name)
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    LAUNCHES[name] += 1
-    if mode is not None:
-        LAUNCHES[f"{name}:{mode}"] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if mode is not None:
+            LAUNCHES[f"{name}:{mode}"] += 1
 
 
 def check(t: torch.Tensor, what: str) -> None:

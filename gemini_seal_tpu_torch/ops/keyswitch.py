@@ -14,6 +14,9 @@ multi_special_primes.cpp and Evaluator::switch_key_inplace):
   :func:`rescale_special` (the mod-down by P: ``ntt``, ``contract`` with
   the inv_hat multiply as its pre-scale, ``ntt``, one ``elementwise``);
 - :func:`switch_key`: the two composed;
+- :class:`NTTOps`: the transforms these take (``ntt=``), in-core by
+  default (:data:`IN_CORE_NTT`), the coefficient-sharded four-step bodies
+  in parallel/pipeline_csp.py;
 - :func:`batched_rotated_inner_product`: the hoisted rotations' inner
   product, one ``galois`` launch that permutes the shared digits for all R
   rotations straight into [..., R, nb, n_ext, N], then one ``contract``
@@ -45,7 +48,31 @@ from .rnsops import _dot_mod_128, _slice_tables, crt_drop_constants
 
 __all__ = ["KeySwitchPlan", "switch_key", "compute_modup_digits",
            "keyswitch_inner_product", "rescale_special",
-           "batched_rotated_inner_product", "keys_stack_inner_product", "fused_moddown"]
+           "batched_rotated_inner_product", "keys_stack_inner_product", "fused_moddown",
+           "NTTOps", "IN_CORE_NTT"]
+
+
+class NTTOps:
+    """Pluggable NTT strategy (the JAX package's keyswitch.NTTOps): the
+    key-switch dataflow is the same in-core and under coefficient sharding;
+    only the four transform entry points differ (parallel/pipeline_csp.py
+    passes the four-step bodies).  This default calls this module's
+    in-core transforms, looked up when called."""
+
+    def forward(self, x, tables):
+        return ntt_forward(x, tables)
+
+    def forward_lazy(self, x, tables):
+        return ntt_forward_lazy(x, tables)
+
+    def inverse(self, x, tables):
+        return ntt_inverse(x, tables)
+
+    def inverse_lazy(self, x, tables):
+        return ntt_inverse_lazy(x, tables)
+
+
+IN_CORE_NTT = NTTOps()
 
 
 class KeySwitchPlan:
@@ -183,6 +210,12 @@ class KeySwitchPlan:
         self.lazy_digits = self._lazy_digits_safe(self.n_bundles, max(ext_moduli))
         self._sp_moduli = sp_moduli
         self._fused = None
+        self._context_data = cd
+
+    @property
+    def device_rns_tool(self):
+        """The level's DeviceRNSTool (its rescale-by-q_last constants)."""
+        return self._context_data.device_rns_tool
 
     @staticmethod
     def _lazy_digits_safe(n_bundles: int, max_p: int) -> bool:
@@ -225,7 +258,8 @@ class KeySwitchPlan:
         return self._fused
 
 
-def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool):
+def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool,
+                         ntt: NTTOps = IN_CORE_NTT):
     """Bundle-batched mod-up digit decomposition: [..., n_ct, N] target ->
     [..., n_bundles, n_ext, N] NTT-domain digit polynomials (ct_k).
 
@@ -239,13 +273,13 @@ def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool):
     batch = target.shape[:-2]
     target = target.contiguous()
 
-    power_target = ntt_inverse_lazy(target, plan.ct_tables) if is_ntt_form else target
+    power_target = ntt.inverse_lazy(target, plan.ct_tables) if is_ntt_form else target
     if is_ntt_form:
         ntt_target = target
     elif plan.lazy_digits:
-        ntt_target = ntt_forward_lazy(target, plan.ct_tables)
+        ntt_target = ntt.forward_lazy(target, plan.ct_tables)
     else:
-        ntt_target = ntt_forward(target, plan.ct_tables)
+        ntt_target = ntt.forward(target, plan.ct_tables)
     ntt_target_ext = F.pad(ntt_target, (0, 0, 0, n_ext - n_ct))
 
     nb, s_max = plan.bundle_shape
@@ -257,13 +291,14 @@ def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool):
         ext.ratio1.reshape(-1), prescale=plan.bundle_prescale,
     )  # [..., nb, n_ext, N]
     if plan.lazy_digits:
-        lifted_ntt = ntt_forward_lazy(lifted, plan.ext_tables)
+        lifted_ntt = ntt.forward_lazy(lifted, plan.ext_tables)
     else:
-        lifted_ntt = ntt_forward(lifted, plan.ext_tables)
+        lifted_ntt = ntt.forward(lifted, plan.ext_tables)
     return torch.where(plan.bundle_diag, ntt_target_ext[..., None, :, :], lifted_ntt)
 
 
-def rescale_special(ext_poly_ntt, plan: KeySwitchPlan, is_ntt_output: bool):
+def rescale_special(ext_poly_ntt, plan: KeySwitchPlan, is_ntt_output: bool,
+                    ntt: NTTOps = IN_CORE_NTT):
     """Mod-down by P = prod(special primes) (multi_special_primes.cpp:237-304).
 
     ext_poly_ntt: [..., n_ext, N] with every limb in the NTT domain (the
@@ -277,23 +312,24 @@ def rescale_special(ext_poly_ntt, plan: KeySwitchPlan, is_ntt_output: bool):
     closing (c_qi + temp_i) * P^-1 mod q_i is one ``elementwise`` launch.
     """
     n_ct = plan.n_ct_rns
-    sp_power = ntt_inverse_lazy(ext_poly_ntt[..., n_ct:, :].contiguous(), plan.sp_tables)
+    sp_power = ntt.inverse_lazy(ext_poly_ntt[..., n_ct:, :].contiguous(), plan.sp_tables)
     sl = plan.sp_limbs
     temp = _dot_mod_128(sp_power, plan.neg_hat_pj_qi, plan.ct_limbs,
                         prescale=(plan.inv_hat_pj_pj, sl.p.reshape(-1),
                                   sl.ratio0.reshape(-1), sl.ratio1.reshape(-1)))
     normal = ext_poly_ntt[..., :n_ct, :].contiguous()
     if is_ntt_output:
-        temp = ntt_forward(temp, plan.ct_tables)
+        temp = ntt.forward(temp, plan.ct_tables)
     else:
-        normal = ntt_inverse(normal, plan.ct_tables)
+        normal = ntt.inverse(normal, plan.ct_tables)
     q = plan.ct_limbs
     return rns_elementwise("addmul", normal, q.p, q.ratio0, q.ratio1, b=temp,
                            s=plan.inv_P_qi)
 
 
 def keyswitch_inner_product(ct_k, key_vector_data, plan: KeySwitchPlan,
-                            is_ntt_output: bool, raw: bool = False):
+                            is_ntt_output: bool, raw: bool = False,
+                            ntt: NTTOps = IN_CORE_NTT):
     """128-bit-exact inner product of mod-up digits with a key-switch key,
     then the special-prime rescale (evaluator.cpp:2313-2361).
 
@@ -314,7 +350,7 @@ def keyswitch_inner_product(ct_k, key_vector_data, plan: KeySwitchPlan,
         acc = contract_mulmod_128(a, w, ext.p.reshape(-1), ext.ratio0.reshape(-1),
                                   ext.ratio1.reshape(-1))
         acc = acc.reshape(ct_k.shape[:-3] + (n_ext, N))
-        out.append(acc if raw else rescale_special(acc, plan, is_ntt_output))
+        out.append(acc if raw else rescale_special(acc, plan, is_ntt_output, ntt=ntt))
     return out[0], out[1]
 
 
@@ -394,7 +430,8 @@ def fused_moddown(c, acc, plan: KeySwitchPlan):
                            ol.ratio0, ol.ratio1, b=temp, s=k["inv_qd_qi"])
 
 
-def switch_key(target, key_vector_data, plan: KeySwitchPlan, is_ntt_form: bool):
+def switch_key(target, key_vector_data, plan: KeySwitchPlan, is_ntt_form: bool,
+               ntt: NTTOps = IN_CORE_NTT):
     """Core hybrid key switch (evaluator.cpp:2259-2368).
 
     target: [..., n_ct, N] in the ciphertext domain (NTT iff is_ntt_form);
@@ -404,5 +441,5 @@ def switch_key(target, key_vector_data, plan: KeySwitchPlan, is_ntt_form: bool):
     Returns (delta0, delta1): [..., n_ct, N] contributions in the
     ciphertext domain, to be added onto c0/c1.
     """
-    ct_k = compute_modup_digits(target, plan, is_ntt_form)
-    return keyswitch_inner_product(ct_k, key_vector_data, plan, is_ntt_form)
+    ct_k = compute_modup_digits(target, plan, is_ntt_form, ntt=ntt)
+    return keyswitch_inner_product(ct_k, key_vector_data, plan, is_ntt_form, ntt=ntt)

@@ -17,7 +17,9 @@ lane kept in [0, 2p) by a conditional subtract at every stage, inverse
 output lazy in [0, 2p) with n^{-1} folded into the last stage.  On a CUDA
 tensor they launch the hand-written kernel (csrc/ntt.cu), in its large-ring
 mode above N=16384; on a CPU tensor they run the plain per-stage radix-2
-version below.
+version below.  :func:`ntt_sub_row` (the kernel's ``sub_row`` mode) runs
+the chunk-local stages of the coefficient-sharded NTT
+(parallel/ntt_sp.py) on one rank's chunk.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ from . import cuda, modops
 from .backend import is_cuda, to_tensor
 
 __all__ = ["NTTTables", "build_ntt_tables", "ntt_forward", "ntt_inverse",
-           "ntt_forward_lazy", "ntt_inverse_lazy", "ntt_plain",
-           "MAX_KERNEL_N", "SHARED_N"]
+           "ntt_forward_lazy", "ntt_inverse_lazy", "ntt_plain", "ntt_sub_row",
+           "sub_row_plain", "MAX_KERNEL_N", "SHARED_N"]
 
 U64 = 0xFFFFFFFFFFFFFFFF
 
@@ -261,7 +263,7 @@ def _transform(x, tables: NTTTables, inverse: bool, canonical: bool):
     # the large-ring forward stages write scratch that its sub-row launch reads
     tmp = torch.empty_like(x) if large and not inverse else None
     cuda.call("ntt", cuda.ptr(out), cuda.ptr(x), cuda.ptr(tmp), x.numel() // n, L, log_n,
-              *(cuda.ptr(t) for t in consts), int(inverse), int(canonical),
+              log_n, 0, *(cuda.ptr(t) for t in consts), int(inverse), int(canonical),
               mode="large_ring" if large else None)
     return out
 
@@ -290,3 +292,104 @@ def ntt_inverse_lazy(x, tables: NTTTables):
 def ntt_inverse(x, tables: NTTTables):
     """Inverse NTT with canonical output in [0, p)."""
     return _transform(x, tables, inverse=True, canonical=True)
+
+
+# --------------------------------------------------------------------------
+# mode sub_row: the chunk-local stages of the coefficient-sharded NTT
+# --------------------------------------------------------------------------
+
+def _sub_row_check(x, tables: NTTTables, rank: int, chunks: int):
+    n = tables.coeff_count
+    if chunks < 2 or chunks & (chunks - 1) or n % chunks or n // chunks < 2:
+        raise ValueError(f"ntt sub_row: {chunks} chunks of a ring of {n}")
+    if not 0 <= rank < chunks:
+        raise ValueError(f"ntt sub_row: chunk {rank} of {chunks}")
+    if x.dim() < 2 or x.shape[-1] != n // chunks:
+        raise ValueError(f"ntt sub_row: expected [..., L, {n // chunks}], got {tuple(x.shape)}")
+
+
+def sub_row_plain(x, tables: NTTTables, rank: int, chunks: int, inverse: bool,
+                  canonical: bool):
+    """Plain version of :func:`ntt_sub_row`: the JAX loops
+    (parallel/ntt_sp.py:56-83, :160-182) on chunk `rank` of `chunks`."""
+    n = tables.coeff_count
+    log_n = tables.coeff_count_power
+    log_c = chunks.bit_length() - 1
+    shape = x.shape
+    lead = shape[:-1]
+    p = tables.modulus.reshape(-1, 1, 1)
+    two_p = p * 2
+    d = rank
+    if not inverse:
+        w_all, ws_all = tables.root_powers, tables.scaled_root_powers
+        for s in range(log_c, log_n):
+            m = 1 << s
+            h = n >> (s + 1)
+            lg = max(m // chunks, 1)
+            w = w_all[:, m + d * lg: m + (d + 1) * lg].reshape(-1, lg, 1)
+            ws = ws_all[:, m + d * lg: m + (d + 1) * lg].reshape(-1, lg, 1)
+            xr = x.reshape(lead + (lg, 2, h))
+            x0, x1 = xr[..., 0, :], xr[..., 1, :]
+            x0 = torch.where(modops.uge(x0, two_p), x0 - two_p, x0)
+            v = modops.mul_mod_shoup_lazy(x1, w, ws, p)
+            x = torch.stack([x0 + v, x0 - v + two_p], dim=-2).reshape(shape)
+        return modops.reduce_twice(x, p.reshape(-1, 1)) if canonical else x
+    if canonical:
+        raise ValueError("ntt sub_row: the inverse chunk stages are lazy")
+    w_all, ws_all = tables.inv_root_powers, tables.scaled_inv_root_powers
+    ofs = 1
+    for s in range(log_n - log_c):
+        m = n >> (s + 1)
+        h = 1 << s
+        lg = m // chunks
+        w = w_all[:, ofs + d * lg: ofs + (d + 1) * lg].reshape(-1, lg, 1)
+        ws = ws_all[:, ofs + d * lg: ofs + (d + 1) * lg].reshape(-1, lg, 1)
+        ofs += m
+        xr = x.reshape(lead + (lg, 2, h))
+        x0, x1 = xr[..., 0, :], xr[..., 1, :]
+        tt = x0 + x1
+        tt = torch.where(modops.uge(tt, two_p), tt - two_p, tt)
+        dd = x0 - x1 + two_p
+        x = torch.stack([tt, modops.mul_mod_shoup_lazy(dd, w, ws, p)], dim=-2).reshape(shape)
+    return x
+
+
+def ntt_sub_row(x, tables: NTTTables, rank: int, chunks: int, inverse: bool,
+                canonical: bool = False):
+    """K1 mode ``sub_row``: the stages of the negacyclic NTT that stay inside
+    chunk `rank` of `chunks` contiguous chunks of the ring, on x:
+    int64[..., L, N / chunks], that rank's coefficients.
+
+    Forward: the last log2(N / chunks) stages (after the cross-chunk stages),
+    output lazy in [0, 4p) or, with ``canonical``, reduced to [0, p).
+    Inverse: the first log2(N / chunks) stages (before the cross-chunk
+    stages), lazy, with no n^-1 fold.  Every value is the JAX loop's
+    (parallel/ntt_sp.py:56-83, :160-182)."""
+    _sub_row_check(x, tables, rank, chunks)
+    if not is_cuda(x, tables.modulus):
+        return sub_row_plain(x, tables, rank, chunks, inverse, canonical)
+    if inverse and canonical:
+        raise ValueError("ntt sub_row: the inverse chunk stages are lazy")
+    cuda.check(x, "ntt sub_row input")
+    n, log_n = tables.coeff_count, tables.coeff_count_power
+    chunk = n // chunks
+    L = x.shape[-2]
+    if tables.modulus.numel() != L:
+        raise ValueError(f"ntt: {tables.modulus.numel()} table rows for {L} limbs")
+    if n > MAX_KERNEL_N:
+        raise ValueError(f"ntt kernel: N={n} is above {MAX_KERNEL_N}")
+    if inverse:
+        w, ws = tables.inv_root_powers, tables.scaled_inv_root_powers
+    else:
+        w, ws = tables.root_powers, tables.scaled_root_powers
+    consts = (w, ws, tables.modulus, tables.inv_degree_modulo, tables.scaled_inv_degree)
+    for t in consts:
+        cuda.check(t, "ntt table")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    tmp = torch.empty_like(x) if chunk > SHARED_N and not inverse else None
+    cuda.call("ntt", cuda.ptr(out), cuda.ptr(x), cuda.ptr(tmp), x.numel() // chunk, L, log_n,
+              chunk.bit_length() - 1, rank, *(cuda.ptr(t) for t in consts), int(inverse),
+              int(canonical), mode="sub_row")
+    return out

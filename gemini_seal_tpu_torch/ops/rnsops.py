@@ -482,17 +482,22 @@ def divide_and_round_q_last(x, tool: DeviceRNSTool):
                            rest_l.ratio0, rest_l.ratio1, b=temp, s=tool.inv_q_last_mod_q)
 
 
-def divide_and_round_q_last_ntt(x, tool: DeviceRNSTool, tables: NTTTables):
+def divide_and_round_q_last_ntt(x, tool: DeviceRNSTool, tables: NTTTables, ntt=None):
     """Drop the last limb with rounding, NTT-domain input and output
     (reference: rns.cpp:777-851): iNTT the last limb, add q_last/2 and
     reduce, lift it into each remaining limb, subtract q_last/2 there,
     forward-NTT, subtract from the rest and multiply by q_last^{-1}.
-    [..., L, N] -> [..., L-1, N]."""
+    [..., L, N] -> [..., L-1, N].
+
+    `ntt` optionally swaps the transform entry points (keyswitch.NTTOps):
+    the coefficient-sharded pipeline passes the four-step bodies."""
+    fwd = ntt_forward if ntt is None else ntt.forward
+    inv = ntt_inverse if ntt is None else ntt.inverse
     L = x.shape[-2]
     q = tool.q_limbs
     last_l, rest_l = q.slice(L - 1, L), q.slice(0, L - 1)
     rest = x[..., : L - 1, :].contiguous()
-    last = ntt_inverse(x[..., L - 1 : L, :].contiguous(), _slice_tables(tables, L - 1, L))
+    last = inv(x[..., L - 1 : L, :].contiguous(), _slice_tables(tables, L - 1, L))
     last = rns_elementwise("barrett64", last, last_l.p, last_l.ratio0, last_l.ratio1,
                            b=tool.half_last)
     lifted = last.expand(last.shape[:-2] + (L - 1, last.shape[-1])).contiguous()
@@ -500,7 +505,7 @@ def divide_and_round_q_last_ntt(x, tool: DeviceRNSTool, tables: NTTTables):
                              rest_l.ratio1, b=tool.zero_rest)
     temp = rns_elementwise("sub", lifted, rest_l.p, rest_l.ratio0, rest_l.ratio1,
                            b=tool.half_mod_qi)
-    temp = ntt_forward(temp, _slice_tables(tables, 0, L - 1))
+    temp = fwd(temp, _slice_tables(tables, 0, L - 1))
     diff = rns_elementwise("sub", rest, rest_l.p, rest_l.ratio0, rest_l.ratio1, b=temp)
     return rns_elementwise("mul", diff, rest_l.p, rest_l.ratio0, rest_l.ratio1,
                            b=tool.inv_q_last_mod_q)

@@ -769,3 +769,197 @@ def test_per_op_chain_matches_plain_path(card):
     r = T.Ciphertext(got[2], x.parms_id, False)
     assert int(dec.decrypt(r).data[0].item()) == 84
     assert dec.invariant_noise_budget(r) == 10
+
+
+# --------------------------------------------------------------------------
+# the multi-device schedules: K11 ntt_sp, K1 sub_row, the schedules on four
+# threads of the card, and the NCCL group on four cards
+# --------------------------------------------------------------------------
+
+from gemini_seal_tpu_torch.ops import ntt_sp as tsp  # noqa: E402
+
+_SP_TABLES = {}
+
+
+def _sp_tables(log_n, card):
+    if log_n not in _SP_TABLES:
+        n = 1 << log_n
+        mods = _mods(n, (60, 50))
+        _SP_TABLES[log_n] = (mods, tn.build_ntt_tables(log_n, mods).to(card))
+    return _SP_TABLES[log_n]
+
+
+def _lazy_res(rng, mods, lead, n, mult):
+    """Residues over [0, mult p) with the top of the range planted: values
+    in [2p, 4p) (forward) or [p, 2p) (inverse) at the lazy-range edges."""
+    x = _res(rng, mods, lead, n, mult)
+    x[..., :, 0] = [mult * p - 1 for p in mods]
+    x[..., :, 1] = [(mult // 2) * p for p in mods]
+    return x
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("log_n", [6, 12, 16])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_sp_exchange_kernel(card, C, log_n, inverse):
+    """K11 exchange, every rank and every cross stage, against its plain
+    version (the last inverse stage folds n^-1 and reduces)."""
+    mods, tables = _sp_tables(log_n, card)
+    n = 1 << log_n
+    rng = np.random.default_rng(C * 100 + log_n)
+    mult = 2 if inverse else 4
+    log_c = C.bit_length() - 1
+    stages = range(log_n - log_c, log_n) if inverse else range(log_c)
+    before = cuda.LAUNCHES["ntt_sp:exchange"]
+    launches = 0
+    for d in range(C):
+        own = to_tensor(_lazy_res(rng, mods, (2,), n // C, mult), card)
+        partner = to_tensor(_lazy_res(rng, mods, (2,), n // C, mult), card)
+        for s in stages:
+            got, want = _both(tsp.ntt_sp_exchange, own, partner, tables, d, C, s,
+                              inverse=inverse, canonical=True)
+            launches += 1
+            assert torch.equal(got, want), (d, s)
+    assert cuda.LAUNCHES["ntt_sp:exchange"] == before + launches
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("log_n", [6, 12, 16])
+@pytest.mark.parametrize("inverse,canonical", [(False, False), (True, False), (True, True)])
+def test_ntt_sp_rows_kernel(card, C, log_n, inverse, canonical):
+    mods, tables = _sp_tables(log_n, card)
+    n = 1 << log_n
+    rng = np.random.default_rng(C + log_n)
+    y = _lazy_res(rng, mods, (3,), n // C, 2 if inverse else 4)
+    y = to_tensor(y.reshape(3, len(mods), C, n // (C * C)), card)
+    before = cuda.LAUNCHES["ntt_sp:rows"]
+    got, want = _both(tsp.ntt_sp_rows, y, tables, C, inverse=inverse, canonical=canonical)
+    assert cuda.LAUNCHES["ntt_sp:rows"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("C,log_n", [(2, 6), (4, 12), (8, 12), (2, 16), (4, 16), (8, 16)])
+@pytest.mark.parametrize("inverse,canonical", [(False, False), (False, True), (True, False)])
+def test_ntt_sub_row_kernel(card, C, log_n, inverse, canonical):
+    """K1 sub_row for every rank index, a chunk of 32768 coefficients at
+    N=65536 on two ranks (its stage launches inside the chunk) included."""
+    mods, tables = _sp_tables(log_n, card)
+    n = 1 << log_n
+    rng = np.random.default_rng(C * log_n)
+    before = cuda.LAUNCHES["ntt:sub_row"]
+    for d in range(C):
+        x = to_tensor(_lazy_res(rng, mods, (2,), n // C, 2 if inverse else 4), card)
+        got, want = _both(tn.ntt_sub_row, x, tables, d, C, inverse, canonical)
+        assert torch.equal(got, want), d
+    assert cuda.LAUNCHES["ntt:sub_row"] == before + C
+
+
+def _four_threads(card, body, *per_rank):
+    from gemini_seal_tpu_torch.parallel.comm import ThreadGroup, run_spmd
+
+    team = ThreadGroup(4, card)
+    got = run_spmd(body, team, *per_rank)
+    with plain_versions():
+        want = run_spmd(body, team, *per_rank)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _split(x, axis):
+    b = x.shape[axis] // 4
+    return [x.narrow(axis, r * b, b).contiguous() for r in range(4)]
+
+
+def test_schedules_on_four_threads(card):
+    """One schedule of each module of parallel/ on a 4-thread group at
+    N=1024: equal to the same schedule's plain path, to the single-card
+    kernels' result, and (limb-sharded) with the zeroed q_last row."""
+    from gemini_seal_tpu_torch.ops.keyswitch import KeySwitchPlan
+    from gemini_seal_tpu_torch.parallel import (behz_sp, bootstrap_sp, keyswitch_sp, ntt_sp,
+                                                pipeline_csp)
+
+    n = 1024
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [30] * 10))
+    parms.set_n_special_primes(2)
+    parms.set_random_seed(tuple(range(91, 99)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none, device=card)
+    kg = T.KeyGenerator(ctx, device=card)
+    enc = T.Encryptor(ctx, kg.public_key(), device=card)
+    cod = T.CKKSEncoder(ctx, device=card)
+    ct = enc.encrypt(cod.encode([0.5, -0.25, 0.125], 2.0 ** 28)).data
+    a = torch.stack([ct, ct.roll(1, -1)])
+    rk = kg.relin_keys().stacked(2)
+    plan = KeySwitchPlan(ctx, ctx.first_parms_id)
+    tables = ctx.first_context_data().ntt_tables
+    n_ct = plan.n_ct_rns
+
+    got, want = _four_threads(card, lambda g, x: [ntt_sp.ntt_forward_sharded(x, tables, g),
+                                                  ntt_sp.ntt_inverse_sharded_4step(x, tables, g)],
+                              _split(a, -1))
+    for k, ref in enumerate((tn.ntt_forward(a, tables), tn.ntt_inverse(a, tables))):
+        assert torch.equal(torch.cat([o[k] for o in got], -1), ref)
+        assert torch.equal(torch.cat([o[k] for o in want], -1), ref)
+
+    single = T.build_ckks_mul_relin_rescale(ctx, device=card)(a, a, rk)
+    got, want = _four_threads(card, lambda g, x: keyswitch_sp.ckks_mul_relin_rescale_limb_sharded(
+        x, x, rk, plan, g), _split(a, -2))
+    joined = torch.cat(got, -2)
+    assert torch.equal(joined, torch.cat(want, -2))
+    assert torch.equal(joined[..., :n_ct - 1, :], single)
+    assert bool((joined[..., n_ct - 1, :] == 0).all())
+
+    got, want = _four_threads(card, lambda g, x, k: pipeline_csp.ckks_mul_relin_rescale_coeff_sharded(
+        x, x, k, plan, g), _split(a, -1), _split(rk, -1))
+    assert torch.equal(torch.cat(got, -1), single) and torch.equal(torch.cat(want, -1), single)
+
+    diag = {d: [0.1 * ((i + d) % 5) for i in range(n // 2)] for d in (0, 1, -3)}
+    tool = ctx.first_context_data().galois_tool
+    elts = [tool.get_elt_from_step(d) for d in sorted(diag) if d]
+    keys = kg.galois_keys(elts).stacked(*elts)
+    mv = bootstrap_sp.build_ckks_matvec_limb_sharded(ctx, diag, 2.0 ** 28, cod, 4, device=card)
+    ref = T.build_ckks_matvec(ctx, diag, 2.0 ** 28, cod, device=card)(a, keys)
+    got, want = _four_threads(card, lambda g, x: mv(g, x, keys), _split(a, -2))
+    assert torch.equal(torch.cat(got, -2), ref) and torch.equal(torch.cat(want, -2), ref)
+
+    bp = T.EncryptionParameters(T.SchemeType.BFV)
+    bp.set_poly_modulus_degree(n)
+    bp.set_coeff_modulus(T.CoeffModulus.create(n, [40] * 5))
+    bp.set_plain_modulus(T.PlainModulus.batching(n, 20))
+    bp.set_random_seed(tuple(range(8)))
+    bctx = T.SealContext(bp, sec_level=T.SecLevelType.none, device=card)
+    bkg = T.KeyGenerator(bctx, device=card)
+    bct = T.Encryptor(bctx, bkg.public_key(), device=card).encrypt(
+        T.BatchEncoder(bctx, device=card).encode(list(range(n)))).data
+    b = torch.stack([bct, bct.roll(2, -1)])
+    brk = bkg.relin_keys().stacked(2)
+    ref = T.build_bfv_mul_relin(bctx, device=card)(b, b, brk)
+    got, want = _four_threads(card, lambda g, x: behz_sp.bfv_mul_relin_limb_sharded(
+        x, x, brk, bctx, g), _split(b, -2))
+    assert torch.equal(torch.cat(got, -2), ref) and torch.equal(torch.cat(want, -2), ref)
+
+
+@pytest.mark.gpu4
+def test_nccl_group_on_four_cards():
+    """The NCCL DistGroup, one spawned process per card: the limb- and the
+    coefficient-sharded steps at N=64 equal the single-card step."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    from torch_helpers import ckks64_context, nccl_bodies
+
+    from gemini_seal_tpu_torch.parallel.comm import spawn
+
+    card = torch.device("cuda", 0)
+    ctx = ckks64_context(card)
+    kg = T.KeyGenerator(ctx, device=card)
+    enc = T.Encryptor(ctx, kg.public_key(), device=card)
+    cod = T.CKKSEncoder(ctx, device=card)
+    a = torch.stack([enc.encrypt(cod.encode([0.5 * (i + 1)], 2.0 ** 25)).data for i in range(2)])
+    rk = kg.relin_keys().stacked(2)
+    single = T.build_ckks_mul_relin_rescale(ctx, device=card)(a, a, rk).cpu()
+    res = spawn(nccl_bodies, 4, "nccl", a.cpu(), rk.cpu())
+    limb = torch.cat([r[0][0] for r in res], -2)
+    assert torch.equal(limb[..., :-1, :], single) and bool((limb[..., -1, :] == 0).all())
+    assert torch.equal(torch.cat([r[0][1] for r in res], -1), single)
+    assert res[0][1]["count"]["all-gather"] == 1 and res[0][1]["count"]["all-to-all"] == 16

@@ -3,10 +3,11 @@
 No file of gemini_seal_tpu_torch/ and no part of chip_smoke.py imports jax
 or gemini_seal_tpu; importing the port, the bootstrap, EvalMod and the
 Evaluator, the DeviceEvaluator and the rest of ops/dyadic.py included,
-leaves jax out of sys.modules; every kernel source (K1-K10) is registered
-and documented; with no card present an entry point called without
-``device`` raises; and chip_smoke.py's CPU rehearsal runs its sixteen paths
-end to end.
+leaves jax out of sys.modules, and so does importing the multi-device
+schedules of parallel/ and K11's ops/ntt_sp.py; every kernel source
+(K1-K11) is registered and documented; with no card present an entry point
+called without ``device`` raises; and chip_smoke.py's CPU rehearsal runs
+its twenty-two paths end to end.
 """
 
 import ast
@@ -71,7 +72,12 @@ def test_import_leaves_jax_out():
     code = ("import sys, gemini_seal_tpu_torch, gemini_seal_tpu_torch.convert, "
             "gemini_seal_tpu_torch.evaluator, gemini_seal_tpu_torch.models.bootstrap, "
             "gemini_seal_tpu_torch.models.evalmod, gemini_seal_tpu_torch.ops.modraise, "
-            "gemini_seal_tpu_torch.models.device_evaluator, gemini_seal_tpu_torch.ops.dyadic; "
+            "gemini_seal_tpu_torch.models.device_evaluator, gemini_seal_tpu_torch.ops.dyadic, "
+            "gemini_seal_tpu_torch.ops.ntt_sp, gemini_seal_tpu_torch.parallel.comm, "
+            "gemini_seal_tpu_torch.parallel.mesh, gemini_seal_tpu_torch.parallel.ntt_sp, "
+            "gemini_seal_tpu_torch.parallel.keyswitch_sp, "
+            "gemini_seal_tpu_torch.parallel.pipeline_csp, gemini_seal_tpu_torch.parallel.behz_sp, "
+            "gemini_seal_tpu_torch.parallel.bootstrap_sp; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gemini_seal_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -125,6 +131,14 @@ def test_entry_points_default_to_the_card():
         T.Encryptor(ctx, kg.public_key())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.Decryptor(ctx, kg.secret_key)
+    from gemini_seal_tpu_torch.parallel.bootstrap_sp import build_ckks_matvec_limb_sharded
+    from gemini_seal_tpu_torch.parallel.comm import ThreadGroup, run_spmd
+
+    for make in (lambda: ThreadGroup(4),
+                 lambda: run_spmd(lambda g: None, 4),
+                 lambda: build_ckks_matvec_limb_sharded(ctx, diags, 2.0 ** 20, encoder, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_bfv_entry_points_default_to_the_card():
@@ -165,7 +179,8 @@ def test_chip_smoke_cpu_rehearsal():
     kernels = json.loads(lines[-2])["kernels"]
     assert sorted(k["name"] for k in kernels) == ["behz", "contract", "elementwise", "galois",
                                                   "infty_norm", "mod_raise", "negacyclic",
-                                                  "ntt", "scale_round", "tensor_product"]
+                                                  "ntt", "ntt_sp", "scale_round",
+                                                  "tensor_product"]
     forms = [json.loads(l)["form"] for l in lines if '"batch2"' in l]
     assert forms == ["multiply", "square", "sequential_multiply", "train_step", "rotate_many",
                      "rotate_many_prepermuted", "bfv_chain_fused_drop",
@@ -182,7 +197,11 @@ def test_chip_smoke_cpu_rehearsal():
                                           "ckks_poly_eval_n32768", "n65536",
                                           "bootstrap_n4096", "dense8x8_n8192",
                                           "per_op_bfv_n4096", "per_op_bfv_n8192_levels",
-                                          "per_op_ckks", "device_evaluator_n8192"]
+                                          "per_op_ckks", "device_evaluator_n8192",
+                                          "ntt_sp4_n65536", "ntt_sp4_n16384",
+                                          "ckks_mul_relin_rescale_csp4_n16384",
+                                          "ckks_mul_relin_rescale_limb4_n4096",
+                                          "bfv_mul_relin_behz4_n8192", "matvec_limb4_n4096"]
     assert all(p["decode_exact"] for p in paths[3:7])
     assert paths[6]["key_forms_decode_equal"]
     assert paths[2]["max_abs_decode_diff_between_key_forms"] < 1e-5
@@ -191,10 +210,24 @@ def test_chip_smoke_cpu_rehearsal():
     assert paths[11]["max_abs_decode_err"] < 1e-4
     # the per-op API: each example's checks (the rehearsal's rings are N=256,
     # so the digests and budgets of the examples' own rings are the card's)
-    for p in paths[12:]:
+    for p in paths[12:16]:
         assert p["checks"] and all(p["checks"].values()), p
     assert paths[12]["ex1_decrypts"] == 84 and paths[12]["ex2_integer_sum"] == -2
     assert paths[13]["degree"] == 8
+    # the schedules on four threads: each equal to the single-card path, with
+    # the JAX package's collective profile
+    for p in paths[16:]:
+        assert (p["ranks"], p["group"], p["cards"]) == (4, "threads", 1)
+        assert p["equal_to_single_card"] and all(p["equal_to_single_card"].values()), p
+    for p in paths[16:18]:
+        assert p["collectives"]["count"] == {"collective-permute": 4, "all-to-all": 4}
+    assert paths[18]["collectives"]["mul_relin_rescale"]["count"] == {"all-to-all": 16}
+    assert paths[19]["collectives"]["mul_relin_rescale"]["count"] == {"all-gather": 1,
+                                                                      "all-reduce": 1}
+    assert paths[19]["collectives"]["rotate_many"]["count"] == {"all-gather": 1}
+    assert paths[20]["collectives"]["count"] == {"all-gather": 5} and paths[20]["decode_exact"]
+    assert paths[21]["collectives"]["count"] == {"all-gather": 1}
+    assert [json.loads(l)["ran"] for l in lines if '"nccl"' in l] == [False]
 
 
 def test_chip_smoke_refuses_without_a_card():
