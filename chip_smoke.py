@@ -5,7 +5,7 @@
     python3 chip_smoke.py --cpu-rehearsal  # small rings on the CPU, plain versions
     python3 chip_smoke.py --nccl-only      # on four cards: only the NCCL phase
 
-Twenty-two paths run, each driven once with every launch counter set to 0 just
+Twenty-four paths run, each driven once with every launch counter set to 0 just
 before it and read just after it.  Three are CKKS, on bench.py's ring
 (N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
 seed range(71, 79), scale 2^40):
@@ -109,15 +109,33 @@ collectives per rank:
   decoding v^2 mod t exactly;
 - matvec_limb4_n4096: the limb-sharded hoisted matvec of an 8x8 matrix.
 
+Two are tools/bench_ntt_mxu.py's shapes for the four-step int8 NTT
+(ops/ntt_mxu.py, kernel ``ntt_mxu`` on the tensor cores), batch 128 x 2
+polys, inputs from np.random.default_rng(0) as the tool makes them:
+
+- ntt_mxu_n16384: config 4's ring, N=16384, CoeffModulus.create(16384,
+  [50, 40, 40, 40, 40, 50]);
+- ntt_mxu_n8192: the headline ring, N=8192, [50, 40, 40, 50];
+
+each forward and inverse transform equal to K1's canonical ntt_forward and
+ntt_inverse bit for bit on the whole batch, and the round trip exact; the
+script then times the four transforms (MXU and K1, forward and inverse) in
+turns and prints poly-limb NTTs/s, their ratio, device ms per transform
+from CUDA events, the busy share and the table-build seconds (``ntt_mxu``
+lines).
+
 With four cards an NCCL phase runs the csp4 and limb4 steps, one process
 per card, against the single-card step; with fewer it says so.
 
 The script
 
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
-2. builds the eleven kernels (nvcc, one process each, in parallel) and
-   prints each one's -Xptxas -v summary;
-3. drives the twenty-two paths; as each kernel call happens it
+2. builds the twelve kernels (nvcc, one process each, in parallel) and
+   prints each one's -Xptxas -v summary, the count of IMMA (int8
+   tensor-core) instructions in ntt_mxu's SASS (cuobjdump -sass) and each
+   ntt_mxu instantiation's registers and stack bytes (cuobjdump
+   -res-usage);
+3. drives the twenty-four paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
    launches of the check are taken off the counters), and times each
@@ -126,7 +144,8 @@ The script
    work (and, for ``galois``, beside torch.index_select / torch.gather,
    for ``mod_raise`` and ``elementwise`` reduce64 beside torch.remainder,
    for ``negacyclic`` beside torch.roll + torch.where, for ``infty_norm``
-   beside torch.amax); in the refresh and the per-op paths, whose steps
+   beside torch.amax, for ``ntt_mxu`` beside its digit-pair products as
+   torch._int_mm calls); in the refresh and the per-op paths, whose steps
    repeat call shapes, each distinct call is timed once;
    ``scale_round``, which runs in encryption and decryption only, is timed
    at those calls; a kernel's modes (the large-ring and sub_row NTT, the
@@ -140,7 +159,8 @@ The script
    rotation in turns, and profiles each (device time by kernel, device
    busy share), with the recorder removed; then each op of the per-op API
    (median host ms over 20 waited calls, device ms and busy share) and
-   ex8's three tiers per ciphertext; the NCCL phase, or why it did not run;
+   ex8's three tiers per ciphertext; the four-step int8 NTT against K1 in
+   turns at both shapes; the NCCL phase, or why it did not run;
 7. prints the kernels line and, last, the result line.
 
 Any mismatch raises and the script exits non-zero; it exits non-zero with
@@ -153,6 +173,7 @@ import argparse
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -162,6 +183,8 @@ import time
 # 67 TFLOP/s FP32 rate): 132 SMs * 64 * 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_IMAD_PER_S = 132 * 64 * 1.98e9
+# dense int8 tensor-core multiply-adds (1,979 TOPS, two operations a MAC)
+INT8_MAC_PER_S = 989.5e12
 
 # 32-bit IMADs per 64-bit operation (the reckoning PERF.md writes out):
 # low word of a 64x64 product 3, high word (__umul64hi) 4, full 128-bit 7;
@@ -207,6 +230,8 @@ PATH_KERNELS = {
                                            "galois"),
     "bfv_mul_relin_behz4_n8192": ("ntt", "tensor_product", "contract", "elementwise", "behz"),
     "matvec_limb4_n4096": ("ntt", "contract", "elementwise", "galois"),
+    "ntt_mxu_n16384": ("ntt_mxu",),
+    "ntt_mxu_n8192": ("ntt_mxu",),
 }
 # paths whose step repeats a call shape many times: each distinct call is
 # timed once and its time counted for every call of that shape
@@ -248,6 +273,29 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def cuobjdump(cuda, flag: str, lib_path: str) -> str:
+    """cuobjdump's (beside nvcc) `flag` listing of a built kernel library."""
+    tool = os.path.join(os.path.dirname(cuda._nvcc()), "cuobjdump")
+    return subprocess.run([tool, flag, lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
+def mxu_resources(cuda, lib_path: str) -> dict:
+    """Registers and stack bytes of each ntt_mxu instantiation, "DW,DX" ->
+    {REG, STACK}, from cuobjdump -res-usage (a stack frame means spills)."""
+    import re
+
+    res, key = {}, None
+    for line in cuobjdump(cuda, "-res-usage", lib_path).splitlines():
+        m = re.search(r"ntt_mxu_kernelILi(\d+)ELi(\d+)E", line)
+        if m:
+            key = f"{m.group(1)},{m.group(2)}"
+        elif key and "REG:" in line:
+            res[key] = {k: int(v) for k, v in re.findall(r"(REG|STACK):(\d+)", line)}
+            key = None
+    return res
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -273,7 +321,7 @@ class Recorder:
 
         from gemini_seal_tpu_torch.models import pipelines
         from gemini_seal_tpu_torch.ops import (cuda, dyadic, galois, modops, modraise, ntt,
-                                               ntt_sp, rnsops)
+                                               ntt_mxu, ntt_sp, rnsops)
 
         kernel_of = {ntt.ntt_forward_lazy: "ntt", ntt.ntt_forward: "ntt",
                      ntt.ntt_inverse_lazy: "ntt", ntt.ntt_inverse: "ntt",
@@ -288,7 +336,8 @@ class Recorder:
                      modraise.mod_raise_lift: "mod_raise",
                      dyadic.negacyclic_shift_poly: "negacyclic",
                      dyadic.negacyclic_mono_mul_poly: "negacyclic",
-                     dyadic.poly_infty_norm: "infty_norm"}
+                     dyadic.poly_infty_norm: "infty_norm",
+                     ntt_mxu.mxu_pass: "ntt_mxu"}
         self.check = check
         self.launches = cuda.LAUNCHES
         self.path = None
@@ -348,6 +397,8 @@ def signature(args, kwargs):
             return tuple(sig(x) for x in v)
         if hasattr(v, "coeff_count"):  # NTTTables
             return ("tables", v.coeff_count, v.modulus.numel())
+        if hasattr(v, "ndig_w"):  # MxuNttTables
+            return ("mxu_tables", v.n, v.modulus.numel())
         if hasattr(v, "ratio0"):  # LimbConstants
             return ("limbs", v.p.numel())
         return v
@@ -448,6 +499,8 @@ def tensors_of(fn_name, args, kwargs):
             else:
                 out += [v.root_powers, v.scaled_root_powers]
             out.append(v.modulus)
+        elif hasattr(v, "ndig_w"):  # MxuNttTables: the pass's matrix is an argument
+            out += [v.modulus, v.ratio0, v.ratio1, v.neg_offset]
         elif hasattr(v, "ratio0"):  # LimbConstants
             out += [v.p, v.ratio0, v.ratio1]
     return out
@@ -581,11 +634,72 @@ def work(kernel, fn_name, args, kwargs, result):
         ops = outs[0].numel() * (IMAD_MULMOD if fn_name == "negacyclic_mono_mul_poly" else 0)
     elif kernel == "infty_norm":
         ops = 0  # compares and subtracts: bytes only
+    elif kernel == "ntt_mxu":
+        # one barrett_reduce_128 per output, and the twist's Shoup multiply;
+        # the digit products are int8 MACs (int8_macs), the ladder adds
+        twist = _arg(args, kwargs, 4, "twist") is not None
+        ops = outs[0].numel() * (IMAD_BARRETT128 + (IMAD_SHOUP if twist else 0))
     elif args[0] == "reduce64":
         ops = outs[0].numel() * IMAD_BARRETT64
     else:
         ops = outs[0].numel() * ELEMENTWISE_MULMODS[args[0]] * IMAD_MULMOD
     return nbytes, ops
+
+
+def int8_macs(kernel, args, kwargs) -> int:
+    """int8 tensor-core multiply-adds of an ntt_mxu pass as _digit_matmul
+    defines them: every digit pair (DW x DX) of K x K x (other axis)
+    products a row; 0 for the other kernels."""
+    if kernel != "ntt_mxu":
+        return 0
+    x, w, tables = args[0], args[1], args[2]
+    side = w.shape[-1]
+    return (x.numel() // side) * side * side * tables.ndig_w * tables.ndig_x
+
+
+def bound_of(nbytes, ops, macs):
+    """(bound ms, what bounds it): the least time of the bytes, the 32-bit
+    IMADs and the int8 MACs at the card's peaks."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / INT32_IMAD_PER_S,
+             "int8 operations": macs / INT8_MAC_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, "bytes" if by == "bytes" else "operations"
+
+
+def mxu_library_call(torch, x, w, tables, contract_x, twist=None):
+    """The digit-pair products of one ntt_mxu pass as torch._int_mm calls
+    (cuBLASLt's int8 GEMM on the card): per limb and shift s one call of
+    the shift's pairs side by side, W_d [K, pairs K] x X_e [pairs K, cols]
+    -> int32 plane_s.  The kernel's tensor-core part only (no digit split,
+    recombine or twist); the port never calls it.  Returns the call and
+    limb 0's planes as a check against the plain _digit_matmul."""
+    from gemini_seal_tpu_torch.ops import ntt_mxu
+
+    dx, dw = tables.ndig_x, tables.ndig_w
+    L, n1, n2 = tables.modulus.numel(), tables.n1, tables.n2
+    xd = ntt_mxu._balanced_digits_dev(x, dx).reshape(dx, -1, L, n1, n2)
+    # [DX, L, K, cols]: cols (batch, N2) contracting N1, (batch, N1) contracting N2
+    perm = (0, 2, 3, 1, 4) if contract_x == "A" else (0, 2, 4, 1, 3)
+    xm = xd.permute(*perm).reshape(dx, L, w.shape[-1], -1).contiguous()
+    calls = []
+    for li in range(L):
+        for s in range(dw + dx - 1):
+            ds = range(max(0, s - dx + 1), min(dw, s + 1))
+            calls.append((torch.cat([w[li, d] for d in ds], 1).contiguous(),
+                          torch.cat([xm[s - d, li] for d in ds], 0).contiguous()))
+    del xd, xm
+
+    def call():
+        return [torch._int_mm(a, b) for a, b in calls]
+
+    def planes0():
+        """Limb 0's planes from the library, in _digit_matmul's layout."""
+        out = []
+        for a, b in calls[:dw + dx - 1]:
+            pl = torch._int_mm(a, b).reshape(a.shape[0], -1, n2 if contract_x == "A" else n1)
+            out.append(pl.permute(1, 0, 2) if contract_x == "A" else pl.permute(1, 2, 0))
+        return out
+    return call, planes0
 
 
 def library_call(torch, x, tabs, moduli=None, paired=False):
@@ -811,9 +925,14 @@ def main(argv=None) -> int:
     if not rehearsal:
         t0 = time.perf_counter()
         report = cuda.build()
+        imma = cuobjdump(cuda, "-sass", report["ntt_mxu"]["path"]).count("IMMA")
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
-                          for k, v in report.items()}})
+                          for k, v in report.items()},
+              "ntt_mxu_sass_imma_instructions": imma,
+              "ntt_mxu_resources": mxu_resources(cuda, report["ntt_mxu"]["path"])})
+        if not imma:
+            raise AssertionError("ntt_mxu's SASS has no IMMA (int8 tensor-core) instruction")
 
     if args.nccl_only:
         if torch.cuda.device_count() < 4:
@@ -865,7 +984,20 @@ def main(argv=None) -> int:
         if phase != "step" and kernel != "scale_round":
             return
         nbytes, ops = work(kernel, fn.__name__, cargs, ckw, result)
+        macs = int8_macs(kernel, cargs, ckw)
         ms = plain_ms = lib_ms = lib = None
+        if kernel == "ntt_mxu":
+            from gemini_seal_tpu_torch.ops import ntt_mxu
+
+            lib, planes0 = mxu_library_call(torch, *cargs, **ckw)
+            x, w, tables, contract_x = cargs[:4]
+            want = ntt_mxu._digit_matmul(ntt_mxu._balanced_digits_dev(
+                x[..., :1, :, :], tables.ndig_x), w[:1], contract_x)
+            for got_s, want_s in zip(planes0(), want):
+                if not torch.equal(got_s.long(), want_s.reshape(got_s.shape)):
+                    raise AssertionError(f"{label}: torch._int_mm's digit planes differ from "
+                                         "the plain version's")
+            del want
         if kernel == "galois":
             lib = library_call(torch, *cargs, **ckw)
             same = lib().reshape(result.shape) == result
@@ -907,12 +1039,14 @@ def main(argv=None) -> int:
                 lib_ms = event_ms(torch, lib, reps)
             if path in TIME_ONCE:
                 timed_once[key] = (ms, plain_ms, lib_ms)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_IMAD_PER_S) * 1e3
+        bound, bound_by = bound_of(nbytes, ops, macs)
         row["step_calls"].append({"path": path, "fn": fn.__name__, "signature": repr(key[2]),
                                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                  "bound_ms": bound, "bytes": nbytes, "imads": ops})
+                                  "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+                                  "imads": ops, "int8_macs": macs})
         bp = row["by_path"].setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                              "bound_ms": 0.0, "bytes": 0, "imads": 0})
+                                              "bound_ms": 0.0, "bytes": 0, "imads": 0,
+                                              "int8_macs": 0})
         if not rehearsal:
             bp["ms"] += ms
             bp["plain_ms"] += plain_ms
@@ -920,6 +1054,7 @@ def main(argv=None) -> int:
         bp["bound_ms"] += bound
         bp["bytes"] += nbytes
         bp["imads"] += ops
+        bp["int8_macs"] += macs
 
     recorder = Recorder(check_call)
 
@@ -1936,6 +2071,48 @@ def main(argv=None) -> int:
     if not (all(equal.values()) and err < 1e-2):
         raise AssertionError(f"matvec_limb4_n4096: {equal}, decodes {err} from M x")
     del got_m
+
+    # 3w-x. ntt_mxu_n16384, ntt_mxu_n8192: tools/bench_ntt_mxu.py's two shapes
+    # of the four-step int8 NTT (batch 128 x 2 polys, inputs from
+    # default_rng(0) as the tool makes them), held to K1 bit for bit; the
+    # rehearsal runs both at N=1024 on two primes
+    from gemini_seal_tpu_torch.ops import ntt_mxu as mxu_ops
+
+    mxu_batch = 2 if rehearsal else 128
+    mxu_runs = {}
+
+    def mxu_path(path, n_m, bits):
+        t0 = begin(path)
+        set_phase("tables")
+        mods = [m.value for m in T.CoeffModulus.create(n_m, bits)]
+        log_m = n_m.bit_length() - 1
+        t1 = time.perf_counter()
+        tabs = mxu_ops.build_mxu_ntt_tables(log_m, mods, device=device)
+        sync()
+        build_s = time.perf_counter() - t1
+        k1tabs = ntt_ops.build_ntt_tables(log_m, mods).to(device)
+        rng = np.random.default_rng(0)
+        xm = to_tensor(np.stack([rng.integers(0, p, (mxu_batch, 2, n_m), dtype=np.uint64)
+                                 for p in mods], axis=2), device)
+        set_phase("step")
+        (fwd, inv), per_step = count_step(lambda v: (mxu_ops.ntt_forward_mxu(v, tabs),
+                                                     mxu_ops.ntt_inverse_mxu(v, tabs)), xm)
+        set_phase("reference")
+        equal = {"forward": bool(torch.equal(fwd, ntt_ops.ntt_forward(xm, k1tabs))),
+                 "inverse": bool(torch.equal(inv, ntt_ops.ntt_inverse(xm, k1tabs))),
+                 "round_trip": bool(torch.equal(mxu_ops.ntt_inverse_mxu(fwd, tabs), xm))}
+        del fwd, inv
+        end(path, t0, per_step, input_shape=list(xm.shape), moduli_bits=bits,
+            n1=tabs.n1, n2=tabs.n2, ndig_w=tabs.ndig_w, ndig_x=tabs.ndig_x,
+            table_build_seconds=build_s, equal_to_k1=equal)
+        if not all(equal.values()):
+            raise AssertionError(f"{path} differs from K1's transforms: {equal}")
+        mxu_runs[path] = (xm, tabs, k1tabs, build_s)
+
+    mxu_path("ntt_mxu_n16384", 1024 if rehearsal else 16384,
+             [50, 40] if rehearsal else [50, 40, 40, 40, 40, 50])
+    mxu_path("ntt_mxu_n8192", 1024 if rehearsal else 8192,
+             [50, 40] if rehearsal else [50, 40, 40, 50])
     recorder.remove()
     for kernel, row in rows.items():
         emit({"phase": "kernel_check", "kernel": kernel, "equal": True, **row})
@@ -2296,7 +2473,41 @@ def main(argv=None) -> int:
                   "device_ms_per_ciphertext": prof["device_ms_per_step"] / count,
                   "device_busy_share": prof["device_busy_share"], "card": card})
 
-    # 6c. the schedules over NCCL, one process per card, when the machine has
+    # 6c. the four-step int8 NTT against K1 at the tool's two shapes: the four
+    # transforms in turns (MXU forward, K1 forward, MXU inverse, K1 inverse,
+    # twice), each with its poly-limb NTTs/s (host clock over about 3 s),
+    # device ms a transform (CUDA events) and busy share (torch.profiler)
+    if not rehearsal:
+        for path, (xm, tabs, k1tabs, build_s) in mxu_runs.items():
+            rows_m = xm.numel() // tabs.n
+            fns = {"mxu_forward": lambda: mxu_ops.ntt_forward_mxu(xm, tabs),
+                   "k1_forward": lambda: ntt_ops.ntt_forward(xm, k1tabs),
+                   "mxu_inverse": lambda: mxu_ops.ntt_inverse_mxu(xm, tabs),
+                   "k1_inverse": lambda: ntt_ops.ntt_inverse(xm, k1tabs)}
+            turns = {name: [] for name in fns}
+            for _ in range(2):
+                for name, fn in fns.items():
+                    rate, iters, dt = steady(torch, fn, rows_m)
+                    prof = profile_steps(torch, fn, 10, dt * 1e3 / iters)
+                    turns[name].append({"ntts_per_s": rate,
+                                        "device_ms": event_ms(torch, fn, reps),
+                                        "device_busy_share": prof["device_busy_share"]})
+
+            def mean(name, field):
+                return sum(t[field] for t in turns[name]) / len(turns[name])
+            emit({"phase": "ntt_mxu", "path": path, "n": tabs.n, "moduli_bits":
+                  [int(p).bit_length() for p in tabs.moduli], "rows": rows_m, "card": card,
+                  "table_build_seconds": build_s,
+                  "poly_limb_ntts_per_s": {k: [t["ntts_per_s"] for t in v]
+                                           for k, v in turns.items()},
+                  "mxu_over_k1": {d: mean(f"mxu_{d}", "ntts_per_s") / mean(f"k1_{d}", "ntts_per_s")
+                                  for d in ("forward", "inverse")},
+                  "device_ms_per_transform": {k: [t["device_ms"] for t in v]
+                                              for k, v in turns.items()},
+                  "device_busy_share": {k: [t["device_busy_share"] for t in v]
+                                        for k, v in turns.items()}})
+
+    # 6d. the schedules over NCCL, one process per card, when the machine has
     # four cards (the one-card run above is four threads of this process)
     nccl_phase(torch, T, device, card, rehearsal)
 
@@ -2344,6 +2555,9 @@ def main(argv=None) -> int:
                            "cross stages, :185-208 ntt_inverse_sharded's",
         "ntt_sp:rows": "gemini_seal_tpu/parallel/ntt_sp.py:259-272 forward_4step_local's and "
                        ":359-373 inverse_4step_local's cross stages",
+        "ntt_mxu": "gemini_seal_tpu/ops/ntt_mxu.py:362 _pass (:275 _balanced_digits_dev, :289 "
+                   "_digit_matmul, :321 _combine_planes) and the twist of :370 ntt_forward_mxu, "
+                   ":389 ntt_inverse_mxu (gemini_seal_tpu/ops/modops.py:184 mul_mod_shoup)",
     }
     sources = {k: f"gemini_seal_tpu_torch/csrc/{v[0]}" for k, v in cuda.KERNELS.items()}
     library_calls = {
@@ -2360,14 +2574,17 @@ def main(argv=None) -> int:
                                "PyTorch call multiplies mod p)",
         "infty_norm": "torch.amax of the centred magnitude (torch.where first)",
         "elementwise:reduce64": "torch.remainder by the per-limb primes",
+        "ntt_mxu": "the digit-pair products only: torch._int_mm (cuBLASLt int8), one call per "
+                   "limb and shift (no PyTorch call splits, recombines or reduces mod p)",
     }
     kernels = []
     for label, row in rows.items():
         bp = row["by_path"]
         total = {f: sum(p[f] for p in bp.values())
-                 for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "imads")}
+                 for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "imads",
+                           "int8_macs")}
         has_lib = label.startswith(("galois", "negacyclic")) or label in (
-            "mod_raise", "infty_norm", "elementwise:reduce64")
+            "mod_raise", "infty_norm", "elementwise:reduce64", "ntt_mxu")
         fields = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if has_lib else ())
         kernels.append({
             "name": label, "route": "cuda", "source": sources[label.split(":")[0]],
@@ -2382,8 +2599,7 @@ def main(argv=None) -> int:
             "ms": total["ms"] if not rehearsal and bp else None,
             "plain_ms": total["plain_ms"] if not rehearsal and bp else None,
             "bound_ms": total["bound_ms"],
-            "bound_by": "operations" if total["imads"] / INT32_IMAD_PER_S
-                        > total["bytes"] / HBM_BYTES_PER_S else "bytes",
+            "bound_by": bound_of(total["bytes"], total["imads"], total["int8_macs"])[1],
             "library_ms": total["library_ms"] if has_lib and not rehearsal and bp else None,
             "library_call": library_calls.get(label, "none: no PyTorch call computes u64 "
                                                      "modular arithmetic"),

@@ -2,11 +2,11 @@
 //
 // Device twins of gemini_seal_tpu/ops/modops.py (mul64_wide, mulhi64,
 // barrett_reduce_128, divmod_128, barrett_reduce_64, mul_mod, mul_mod_shoup_lazy,
-// add_mod, sub_mod, neg_mod, reduce_once, reduce_twice).  The TPU has no
-// 64-bit multiplier and builds the 128-bit product from u32 halves; here the
-// low word is one 64-bit multiply and the high word is __umul64hi.  Every
-// function follows the JAX step sequence, so results (lazy ranges
-// included) are bit-identical to the plain versions.
+// mul_mod_shoup, add_mod, sub_mod, neg_mod, reduce_once, reduce_twice).  The
+// TPU has no 64-bit multiplier and builds the 128-bit product from u32
+// halves; here the low word is one 64-bit multiply and the high word is
+// __umul64hi.  Every function follows the JAX step sequence, so results
+// (lazy ranges included) are bit-identical to the plain versions.
 #pragma once
 
 #include <cstdint>
@@ -61,6 +61,12 @@ __device__ __forceinline__ u64 mul_mod(u64 a, u64 b, u64 p, u64 r0, u64 r1) {
 // x * w mod p in [0, 2p), w_shoup = floor(w * 2^64 / p)
 __device__ __forceinline__ u64 mul_mod_shoup_lazy(u64 x, u64 w, u64 w_shoup, u64 p) {
     return x * w - __umul64hi(x, w_shoup) * p;
+}
+
+// the same product reduced once: [0, p)
+__device__ __forceinline__ u64 mul_mod_shoup(u64 x, u64 w, u64 w_shoup, u64 p) {
+    const u64 r = mul_mod_shoup_lazy(x, w, w_shoup, p);
+    return r >= p ? r - p : r;
 }
 
 __device__ __forceinline__ u64 add_mod(u64 a, u64 b, u64 p) {

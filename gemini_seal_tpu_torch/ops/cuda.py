@@ -68,6 +68,8 @@ KERNELS = {
     "infty_norm": ("infty_norm.cu", "gst_infty_norm", [_P, _P, _P, _I, _I, _I, _P]),
     "ntt_sp": ("ntt_sp.cu", "gst_ntt_sp", [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "ntt_mxu": ("ntt_mxu.cu", "gst_ntt_mxu", [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 # kernel name -> the modes that a call names (see ``call``)
@@ -186,11 +188,12 @@ def call(name: str, *args, mode=None) -> None:
             LAUNCHES[f"{name}:{mode}"] += 1
 
 
-def check(t: torch.Tensor, what: str) -> None:
-    """Wrapper-side checks shared by every kernel: CUDA, int64, contiguous."""
+def check(t: torch.Tensor, what: str, dtype=torch.int64) -> None:
+    """Wrapper-side checks shared by every kernel: CUDA, the dtype (int64
+    residues, or the int8 digit planes of ``ntt_mxu``), contiguous."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int64:
-        raise TypeError(f"{what}: expected torch.int64 residues, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")

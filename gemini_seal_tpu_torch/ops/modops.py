@@ -8,6 +8,7 @@ shift then a mask, an unsigned compare is a signed compare after XOR with
 1<<63, and products wrap like u64.  They are bit-identical to the JAX
 functions, lazy ranges included:
   - mul_mod_shoup_lazy: output in [0, 2p) for any 64-bit x, w < p
+  - mul_mod_shoup: the same product reduced once, output in [0, p)
   - barrett_reduce_128/64: output in [0, p)
 
 On the card the same arithmetic runs inside the kernels (csrc/modops.cuh).
@@ -41,6 +42,7 @@ __all__ = [
     "barrett_reduce_64",
     "mul_mod",
     "mul_mod_shoup_lazy",
+    "mul_mod_shoup",
     "add_mod",
     "sub_mod",
     "neg_mod",
@@ -152,6 +154,13 @@ def mul_mod_shoup_lazy(x, w, w_shoup, p):
     """x * w mod p in [0, 2p) given w_shoup = floor(w * 2^64 / p)."""
     q = mulhi64(x, w_shoup)
     return x * w - q * p
+
+
+def mul_mod_shoup(x, w, w_shoup, p):
+    """Canonical-output Shoup multiplication: x * w mod p in [0, p)
+    (the JAX mul_mod_shoup, ops/modops.py:184-190)."""
+    r = mul_mod_shoup_lazy(x, w, w_shoup, p)
+    return _where(uge(r, p), r - p, r)
 
 
 def add_mod(a, b, p):

@@ -6,8 +6,10 @@ the contraction's broadcast mode), and the fused step, the train step, the
 hoisted rotations in both key forms, the BFV steps and rotations and the
 deep polynomial against the plain path, keygen, encryption and
 decryption at N=32768, the negacyclic monomial multiply (both modes), the
-centred norm and the Barrett-64 reduction of ops/dyadic.py, and the per-op
-Evaluator's ex1 chain at N=4096 against the plain path.  They need a CUDA card and skip without one; on a machine with
+centred norm and the Barrett-64 reduction of ops/dyadic.py, the per-op
+Evaluator's ex1 chain at N=4096 against the plain path, and K12's passes of
+the four-step int8 NTT (ops/ntt_mxu.py) against their plain versions and
+K1.  They need a CUDA card and skip without one; on a machine with
 an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
@@ -963,3 +965,80 @@ def test_nccl_group_on_four_cards():
     assert torch.equal(limb[..., :-1, :], single) and bool((limb[..., -1, :] == 0).all())
     assert torch.equal(torch.cat([r[0][1] for r in res], -1), single)
     assert res[0][1]["count"]["all-gather"] == 1 and res[0][1]["count"]["all-to-all"] == 16
+
+
+# --------------------------------------------------------------------------
+# K12 ntt_mxu: the four-step NTT's digit-pair passes on the int8 tensor cores
+# --------------------------------------------------------------------------
+
+from gemini_seal_tpu_torch.ops import ntt_mxu as tmx  # noqa: E402
+
+_MXU = {}
+
+
+def _mxu(log_n, bits, card):
+    """(moduli, K12 tables, K1 tables) at N = 2^log_n, built once a module."""
+    key = (log_n, tuple(bits))
+    if key not in _MXU:
+        pools = {b: get_primes(max(1 << log_n, 1024), b, bits.count(b)) for b in set(bits)}
+        mods = [pools[b].pop() for b in bits]
+        _MXU[key] = (mods, tmx.build_mxu_ntt_tables(log_n, mods, device=card),
+                     tn.build_ntt_tables(log_n, mods).to(card))
+    return _MXU[key]
+
+
+@pytest.mark.parametrize("log_n,bits", [(4, (30, 30)), (8, (50, 40)), (10, (54, 54)),
+                                        (13, (50, 40, 40, 50)), (14, (50, 40, 40, 40, 40, 50)),
+                                        (16, (50, 40))])
+@pytest.mark.parametrize("fill", ["random", "zero", "top"])
+def test_ntt_mxu_kernel(card, log_n, bits, fill):
+    """K12's two passes in both directions equal their plain versions and
+    K1's canonical transforms: K below 32 (log N = 4, 8, 10: the zero-padded
+    k32 step), both pass modes, 54-bit moduli (eight data digits), mixed
+    40/50-bit limbs, and K = 512 at N = 65536 (the int32 headroom); inputs
+    random over the lazy range [0, 2p), all 0, and all 2p - 1."""
+    mods, mx, k1 = _mxu(log_n, list(bits), card)
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    lead = (2,) if log_n == 16 else (3, 2)
+    x = _res(rng, mods, lead, n, 2)
+    if fill != "random":
+        for li, p in enumerate(mods):
+            x[..., li, :] = 0 if fill == "zero" else 2 * p - 1
+    xt = to_tensor(x, card)
+    before = cuda.LAUNCHES["ntt_mxu"]
+    got_f, want_f = _both(tmx.ntt_forward_mxu, xt, mx)
+    got_i, want_i = _both(tmx.ntt_inverse_mxu, xt, mx)
+    assert cuda.LAUNCHES["ntt_mxu"] == before + 4
+    assert torch.equal(got_f, want_f) and torch.equal(got_i, want_i)
+    assert torch.equal(got_f, tn.ntt_forward(xt, k1))
+    assert torch.equal(got_i, tn.ntt_inverse(xt, k1))
+
+
+@pytest.mark.parametrize("log_n,bits", [(10, (54, 54)), (14, (50, 40, 40, 40, 40, 50))])
+def test_ntt_mxu_round_trip(card, log_n, bits):
+    mods, mx, _ = _mxu(log_n, list(bits), card)
+    x = to_tensor(_res(np.random.default_rng(7), mods, (4, 2), 1 << log_n), card)
+    assert torch.equal(tmx.ntt_inverse_mxu(tmx.ntt_forward_mxu(x, mx), mx), x)
+    assert torch.equal(tmx.ntt_forward_mxu(tmx.ntt_inverse_mxu(x, mx), mx), x)
+
+
+def test_ntt_mxu_unbuilt_kernel_raises(card, monkeypatch, tmp_path):
+    """With no build of K12 and no compiler, a CUDA tensor raises: nothing
+    falls back to the plain version."""
+    mods, mx, _ = _mxu(8, [50, 40], card)
+    x = to_tensor(_res(np.random.default_rng(1), mods, (2,), 256), card)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(cuda, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda, "BUILD_REPORT", {})
+    monkeypatch.setattr(cuda, "_FUNCS", {})
+    monkeypatch.setattr(cuda, "_nvcc", no_nvcc)
+    monkeypatch.setattr(tmx, "mxu_pass_plain", no_plain)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tmx.ntt_forward_mxu(x, mx)

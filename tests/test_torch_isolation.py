@@ -4,10 +4,10 @@ No file of gemini_seal_tpu_torch/ and no part of chip_smoke.py imports jax
 or gemini_seal_tpu; importing the port, the bootstrap, EvalMod and the
 Evaluator, the DeviceEvaluator and the rest of ops/dyadic.py included,
 leaves jax out of sys.modules, and so does importing the multi-device
-schedules of parallel/ and K11's ops/ntt_sp.py; every kernel source
-(K1-K11) is registered and documented; with no card present an entry point
-called without ``device`` raises; and chip_smoke.py's CPU rehearsal runs
-its twenty-two paths end to end.
+schedules of parallel/, K11's ops/ntt_sp.py and K12's ops/ntt_mxu.py;
+every kernel source (K1-K12) is registered and documented; with no card
+present an entry point called without ``device`` raises; and
+chip_smoke.py's CPU rehearsal runs its twenty-four paths end to end.
 """
 
 import ast
@@ -77,7 +77,7 @@ def test_import_leaves_jax_out():
             "gemini_seal_tpu_torch.parallel.mesh, gemini_seal_tpu_torch.parallel.ntt_sp, "
             "gemini_seal_tpu_torch.parallel.keyswitch_sp, "
             "gemini_seal_tpu_torch.parallel.pipeline_csp, gemini_seal_tpu_torch.parallel.behz_sp, "
-            "gemini_seal_tpu_torch.parallel.bootstrap_sp; "
+            "gemini_seal_tpu_torch.parallel.bootstrap_sp, gemini_seal_tpu_torch.ops.ntt_mxu; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gemini_seal_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -131,12 +131,14 @@ def test_entry_points_default_to_the_card():
         T.Encryptor(ctx, kg.public_key())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.Decryptor(ctx, kg.secret_key)
+    from gemini_seal_tpu_torch.ops.ntt_mxu import build_mxu_ntt_tables
     from gemini_seal_tpu_torch.parallel.bootstrap_sp import build_ckks_matvec_limb_sharded
     from gemini_seal_tpu_torch.parallel.comm import ThreadGroup, run_spmd
 
     for make in (lambda: ThreadGroup(4),
                  lambda: run_spmd(lambda g: None, 4),
-                 lambda: build_ckks_matvec_limb_sharded(ctx, diags, 2.0 ** 20, encoder, 1)):
+                 lambda: build_ckks_matvec_limb_sharded(ctx, diags, 2.0 ** 20, encoder, 1),
+                 lambda: build_mxu_ntt_tables(8, ctx.first_context_data().parms.coeff_modulus)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
@@ -179,7 +181,7 @@ def test_chip_smoke_cpu_rehearsal():
     kernels = json.loads(lines[-2])["kernels"]
     assert sorted(k["name"] for k in kernels) == ["behz", "contract", "elementwise", "galois",
                                                   "infty_norm", "mod_raise", "negacyclic",
-                                                  "ntt", "ntt_sp", "scale_round",
+                                                  "ntt", "ntt_mxu", "ntt_sp", "scale_round",
                                                   "tensor_product"]
     forms = [json.loads(l)["form"] for l in lines if '"batch2"' in l]
     assert forms == ["multiply", "square", "sequential_multiply", "train_step", "rotate_many",
@@ -201,7 +203,8 @@ def test_chip_smoke_cpu_rehearsal():
                                           "ntt_sp4_n65536", "ntt_sp4_n16384",
                                           "ckks_mul_relin_rescale_csp4_n16384",
                                           "ckks_mul_relin_rescale_limb4_n4096",
-                                          "bfv_mul_relin_behz4_n8192", "matvec_limb4_n4096"]
+                                          "bfv_mul_relin_behz4_n8192", "matvec_limb4_n4096",
+                                          "ntt_mxu_n16384", "ntt_mxu_n8192"]
     assert all(p["decode_exact"] for p in paths[3:7])
     assert paths[6]["key_forms_decode_equal"]
     assert paths[2]["max_abs_decode_diff_between_key_forms"] < 1e-5
@@ -216,7 +219,7 @@ def test_chip_smoke_cpu_rehearsal():
     assert paths[13]["degree"] == 8
     # the schedules on four threads: each equal to the single-card path, with
     # the JAX package's collective profile
-    for p in paths[16:]:
+    for p in paths[16:22]:
         assert (p["ranks"], p["group"], p["cards"]) == (4, "threads", 1)
         assert p["equal_to_single_card"] and all(p["equal_to_single_card"].values()), p
     for p in paths[16:18]:
@@ -227,6 +230,9 @@ def test_chip_smoke_cpu_rehearsal():
     assert paths[19]["collectives"]["rotate_many"]["count"] == {"all-gather": 1}
     assert paths[20]["collectives"]["count"] == {"all-gather": 5} and paths[20]["decode_exact"]
     assert paths[21]["collectives"]["count"] == {"all-gather": 1}
+    # the four-step int8 NTT at N=1024: equal to K1 both ways, exact round trip
+    for p in paths[22:24]:
+        assert p["equal_to_k1"] == {"forward": True, "inverse": True, "round_trip": True}, p
     assert [json.loads(l)["ran"] for l in lines if '"nccl"' in l] == [False]
 
 

@@ -47,7 +47,8 @@ def contiguous_calls():
     for info in pkgutil.walk_packages(gemini_seal_tpu_torch.__path__, "gemini_seal_tpu_torch."):
         importlib.import_module(info.name)
     from gemini_seal_tpu_torch.models import pipelines
-    from gemini_seal_tpu_torch.ops import dyadic, galois, modops, modraise, ntt, ntt_sp, rnsops
+    from gemini_seal_tpu_torch.ops import (dyadic, galois, modops, modraise, ntt, ntt_mxu, ntt_sp,
+                                           rnsops)
 
     wrappers = [ntt.ntt_forward_lazy, ntt.ntt_forward, ntt.ntt_inverse_lazy,
                 ntt.ntt_inverse, ntt.ntt_sub_row, ntt_sp.ntt_sp_exchange, ntt_sp.ntt_sp_rows,
@@ -55,7 +56,7 @@ def contiguous_calls():
                 modops.rns_elementwise, galois.galois_permute, rnsops.behz,
                 rnsops.scale_round, modraise.mod_raise_lift, dyadic.modulo_poly_coeffs,
                 dyadic.negacyclic_shift_poly, dyadic.negacyclic_mono_mul_poly,
-                dyadic.poly_infty_norm]
+                dyadic.poly_infty_norm, ntt_mxu.mxu_pass]
 
     def strict(fn):
         def call(*args, **kwargs):
