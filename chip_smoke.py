@@ -132,25 +132,29 @@ The script
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
 2. builds the twelve kernels (nvcc, one process each, in parallel) and
    prints each one's -Xptxas -v summary, the count of IMMA (int8
-   tensor-core) instructions in ntt_mxu's SASS (cuobjdump -sass) and each
-   ntt_mxu instantiation's registers and stack bytes (cuobjdump
-   -res-usage);
+   tensor-core) instructions in ntt_mxu's SASS (cuobjdump -sass), the
+   registers and stack bytes (cuobjdump -res-usage; a stack frame means
+   spills) of each instantiation of ntt_mxu, ntt (direction, row length)
+   and galois (signed, paired, row mode), and the N=8192 ntt kernels' SASS
+   instructions a butterfly;
 3. drives the twenty-four paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
-   launches of the check are taken off the counters), and times each
-   call of a path's step both ways with
-   CUDA events beside the least time the card could take for the same
-   work (and, for ``galois``, beside torch.index_select / torch.gather,
+   launches of the check are taken off the counters), and times each call
+   of a path's step both ways with CUDA events beside the least time the
+   card could take for the same work (for ``galois`` counting the 32-bit
+   tables that the kernel reads) and, for ``galois``, beside
+   torch.index_select / torch.gather,
    for ``mod_raise`` and ``elementwise`` reduce64 beside torch.remainder,
    for ``negacyclic`` beside torch.roll + torch.where, for ``infty_norm``
    beside torch.amax, for ``ntt_mxu`` beside its digit-pair products as
    torch._int_mm calls); in the refresh and the per-op paths, whose steps
    repeat call shapes, each distinct call is timed once;
    ``scale_round``, which runs in encryption and decryption only, is timed
-   at those calls; a kernel's modes (the large-ring and sub_row NTT, the
-   signed and paired Galois permutations, the broadcast contraction, K11's
-   exchange and rows) are rows of their own;
+   at those calls; a kernel's modes (the large-ring NTT, one cluster
+   launch a transform, and the sub_row NTT, the signed and paired Galois
+   permutations, the broadcast contraction, K11's exchange and rows) are
+   rows of their own;
 5. checks batch 2 of every step form (the refresh: its one ciphertext)
    against the port's plain path on the card, bit for bit, and each one's
    decode (with BFV rotate_columns);
@@ -280,20 +284,50 @@ def cuobjdump(cuda, flag: str, lib_path: str) -> str:
                           check=True, timeout=300).stdout
 
 
-def mxu_resources(cuda, lib_path: str) -> dict:
-    """Registers and stack bytes of each ntt_mxu instantiation, "DW,DX" ->
-    {REG, STACK}, from cuobjdump -res-usage (a stack frame means spills)."""
+# each kernel whose instantiations the build line lists: the mangled name's
+# template arguments, and what they mean
+RESOURCE_KERNELS = {
+    "ntt_mxu": (r"ntt_mxu_kernelILi(\d+)ELi(\d+)E", ("DW", "DX")),
+    "ntt": (r"ntt_kernelILb(\d)ELi(\d+)E", ("inverse", "log2 row")),
+    # mode: 0 the whole row in one CTA, 1 one slice a CTA, 2 a cluster a row
+    "galois": (r"galois_kernelILb(\d)ELb(\d)ELi(\d)E", ("signed", "paired", "mode")),
+}
+
+
+def kernel_resources(cuda, kernel: str, lib_path: str) -> dict:
+    """Registers and stack bytes of each instantiation of a kernel, "a=x,b=y"
+    (its template arguments) -> {REG, STACK}, from cuobjdump -res-usage (a
+    stack frame means spills)."""
     import re
 
+    pattern, names = RESOURCE_KERNELS[kernel]
     res, key = {}, None
     for line in cuobjdump(cuda, "-res-usage", lib_path).splitlines():
-        m = re.search(r"ntt_mxu_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(pattern, line)
         if m:
-            key = f"{m.group(1)},{m.group(2)}"
+            key = ",".join(f"{n}={v}" for n, v in zip(names, m.groups()))
         elif key and "REG:" in line:
             res[key] = {k: int(v) for k, v in re.findall(r"(REG|STACK):(\d+)", line)}
             key = None
     return res
+
+
+def ntt_instructions_per_butterfly(cuda, lib_path: str) -> dict:
+    """Static SASS instructions of the N=8192 ntt kernels (forward, inverse)
+    over the butterflies a thread runs a row (13 stages x 4): the row loop
+    runs once a row, so this is what each butterfly costs in issue slots,
+    memory and index work included.  Uniform-datapath instructions (U*),
+    NOP, BRA and EXIT are left out: they take no slot of the 64-lane pipes."""
+    import re
+
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", cuobjdump(cuda, "-sass", lib_path))[1:]:
+        m = re.match(r"_Z10ntt_kernelILb(\d)ELi13E", fn)
+        if m:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
+            lanes = [o for o in ops if not o.startswith(("U", "NOP", "BRA", "EXIT"))]
+            out["inverse" if m.group(1) == "1" else "forward"] = len(lanes) / 52
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -590,6 +624,15 @@ def work(kernel, fn_name, args, kwargs, result):
         nbytes = bytes_once([y]) + bytes_once(outs) + 16 * L * (chunks - 1)
         stages = chunks.bit_length() - 1 + (1 if inverse else 0)  # + the n^-1 fold
         return nbytes, (y.numel() // 2) * stages * IMAD_SHOUP
+    if kernel == "galois":
+        # the kernel reads the tables' int32 copy and its block map, one
+        # entry a table and 8192-coefficient slice (ops.galois.kernel_tables)
+        x, tabs = args[0], args[1]
+        moduli = _arg(args, kwargs, 2, "moduli")
+        R, N = tabs.shape
+        nbytes = (bytes_once([x] + ([moduli] if moduli is not None else []))
+                  + (tabs.numel() + R * max(1, N // 8192)) * 4 + bytes_once(outs))
+        return nbytes, 0  # a permutation: bytes only
     need_args, need_kwargs, live_k = needed_inputs(kernel, args, kwargs)
     nbytes = bytes_once(tensors_of(fn_name, need_args, need_kwargs)) + bytes_once(outs)
     if kernel == "ntt":
@@ -607,8 +650,6 @@ def work(kernel, fn_name, args, kwargs, result):
         ops = outs[0].numel() * (live_k * IMAD_MAC + IMAD_BARRETT128)
         if kwargs.get("prescale") is not None:  # once per needed input element
             ops += a.numel() // K * live_k * IMAD_MULMOD
-    elif kernel == "galois":
-        ops = 0  # a permutation: bytes only
     elif kernel == "behz":
         # sm_mrq: low-word multiply for r, the 128-bit q*r, barrett_reduce_128
         # and a mul_mod per output; sk_tail: alpha once per coefficient and
@@ -930,7 +971,10 @@ def main(argv=None) -> int:
               "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                           for k, v in report.items()},
               "ntt_mxu_sass_imma_instructions": imma,
-              "ntt_mxu_resources": mxu_resources(cuda, report["ntt_mxu"]["path"])})
+              "resources": {k: kernel_resources(cuda, k, report[k]["path"])
+                            for k in RESOURCE_KERNELS},
+              "ntt_sass_instructions_per_butterfly": ntt_instructions_per_butterfly(
+                  cuda, report["ntt"]["path"])})
         if not imma:
             raise AssertionError("ntt_mxu's SASS has no IMMA (int8 tensor-core) instruction")
 
@@ -2515,7 +2559,7 @@ def main(argv=None) -> int:
     replaces = {
         "ntt": "gemini_seal_tpu/ops/ntt.py:241 ntt_forward_lazy, :322 ntt_inverse_lazy",
         "ntt:large_ring": "gemini_seal_tpu/ops/ntt.py:241 ntt_forward_lazy, :322 "
-                          "ntt_inverse_lazy at N = 32768, 65536",
+                          "ntt_inverse_lazy at N = 32768, 65536 (one cluster launch)",
         "tensor_product": "gemini_seal_tpu/models/pipelines.py:72 _convolve3, :87 _square3",
         "contract": "gemini_seal_tpu/ops/modops.py:218 accumulate_mulmod_128",
         "contract:broadcast": "gemini_seal_tpu/models/pipelines.py:318 "
@@ -2523,7 +2567,8 @@ def main(argv=None) -> int:
         "elementwise": "gemini_seal_tpu/ops/keyswitch.py:438 fused_moddown mul_mod/add_mod "
                        "epilogues; gemini_seal_tpu/ops/rnsops.py:356 fast_floor, :182 "
                        "divide_and_round_q_last, :463 divide_and_round_multi",
-        "galois": "gemini_seal_tpu/ops/galois.py:123 apply_galois_ntt",
+        "galois": "gemini_seal_tpu/ops/galois.py:123 apply_galois_ntt; "
+                  "gemini_seal_tpu/ops/keyswitch.py:403 the R-table digit gather",
         "galois:signed": "gemini_seal_tpu/ops/galois.py:115 apply_galois; "
                          "gemini_seal_tpu/models/pipelines.py:403 build_bfv_rotate_many's "
                          "signed gather of c0",

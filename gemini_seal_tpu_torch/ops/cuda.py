@@ -51,7 +51,7 @@ _I = ctypes.c_int64
 # kernel name -> (source, C entry point, argtypes)
 KERNELS = {
     "ntt": ("ntt.cu", "gst_ntt", [
-        _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
+        _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P]),
     "tensor_product": ("tensor_product.cu", "gst_tensor_product", [
         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "contract": ("contract.cu", "gst_contract", [

@@ -7,9 +7,10 @@ is a pure permutation of each row's coefficients (a bit-reversed index map,
 galois.cpp:18-47); in the power basis it is a permutation with a sign flip
 where i * elt wraps past N (galois.cpp:144-186, inverted into a gather).
 The element maps and the tables are host numpy, cached per element; each
-table set is mirrored once as an int64 tensor on the context's device.  A
-power-basis table entry carries its sign flag in bit log N, above the
-index.
+table set is mirrored once as an int64 tensor on the context's device, and
+on a card also as the int32 tensor that the kernel reads
+(:func:`kernel_tables`).  A power-basis table entry carries its sign flag
+in bit log N, above the index.
 
 :func:`galois_permute` is the kernel wrapper: one launch applies R tables
 to every row of a [..., rows, N] tensor and writes [..., R, rows, N] (a
@@ -21,6 +22,7 @@ entries whose table entry carries the sign flag.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -29,8 +31,45 @@ import torch
 from ..utils import numth
 from . import cuda
 from .backend import is_cuda
+from .ntt import MAX_KERNEL_N
 
-__all__ = ["GaloisTool", "galois_permute", "galois_plain"]
+__all__ = ["GaloisTool", "galois_permute", "galois_plain", "kernel_tables"]
+
+# the kernel's row slice: rows above it are split over a cluster of CTAs
+# (csrc/galois.cu GALOIS_SLICE_LOG)
+KERNEL_SLICE = 8192
+
+# id(int64 table stack) -> (a weak reference to it, its version, its int32 copy)
+_KERNEL_TABLES: Dict[int, tuple] = {}
+
+
+def kernel_tables(tabs):
+    """(int32 copy, block-local) of an int64[R, N] table stack: the copy is
+    what the kernel reads (half the bytes; N <= 65536, so an index and the
+    sign flag in bit log N fit), made once per stack and kept while the
+    stack lives and is not written to.  Its storage continues past the [R,
+    N] entries with the [R, C] block map of a row of C = max(1, N /
+    KERNEL_SLICE) slices: entry [r, b] is the output slice that reads input
+    slice b through table r, when every output slice of every table reads
+    one input slice (block-local: the NTT-domain permutations, whose slices
+    then need no exchange between CTAs), else -1 throughout."""
+    key = id(tabs)
+    hit = _KERNEL_TABLES.get(key)
+    if hit is not None and hit[0]() is tabs and hit[1] == tabs._version:
+        return hit[2]
+    R, N = tabs.shape
+    C = max(1, N // KERNEL_SLICE)
+    src = ((tabs & (N - 1)) // (N // C)).reshape(R, C, N // C)
+    first = src[..., 0]
+    order = torch.arange(C, device=tabs.device)
+    local = bool((src == first.unsqueeze(-1)).all()) and bool(
+        (first.sort(-1).values == order).all())
+    bmap = torch.argsort(first, dim=-1) if local else torch.full_like(first, -1)
+    flat = torch.cat([tabs.reshape(-1), bmap.reshape(-1)]).to(torch.int32)
+    entry = (flat[: R * N].view(R, N), local)
+    _KERNEL_TABLES[key] = (weakref.ref(tabs, lambda _, k=key: _KERNEL_TABLES.pop(k, None)),
+                           tabs._version, entry)
+    return entry
 
 
 def galois_plain(x, tabs, moduli=None, paired: bool = False):
@@ -70,11 +109,11 @@ def galois_permute(x, tabs, moduli=None, paired: bool = False):
     cuda.check(tabs, "galois tables")
     rows, N = x.shape[-2:]
     R = tabs.shape[0]
-    if N < 2 or N & (N - 1) or R > 65535:
+    if N < 2 or N & (N - 1) or N > MAX_KERNEL_N:
         raise ValueError(f"galois kernel: N={N} is not a ring degree (a power of two "
-                         f">= 2), or R={R} tables exceed 65535")
-    if tabs.data_ptr() % 16:
-        raise ValueError("galois kernel: the tables must be 16-byte aligned")
+                         f"in [2, {MAX_KERNEL_N}])")
+    if x.data_ptr() % 16:
+        raise ValueError("galois kernel: the input rows must be 16-byte aligned")
     L = 1
     if moduli is not None:
         cuda.check(moduli, "galois moduli")
@@ -85,15 +124,15 @@ def galois_permute(x, tabs, moduli=None, paired: bool = False):
         if x.dim() < 3 or x.shape[-3] != R:
             raise ValueError(f"galois paired: x {tuple(x.shape)} does not carry R={R}")
         out = torch.empty_like(x)
-        B = x.numel() // (R * rows * N)
     else:
         out = torch.empty(x.shape[:-2] + (R, rows, N), dtype=torch.int64, device=x.device)
-        B = x.numel() // (rows * N)
     if out.numel() == 0:
         return out
     mode = "_".join((["signed"] if moduli is not None else []) + (["paired"] if paired else []))
-    cuda.call("galois", cuda.ptr(out), cuda.ptr(x), cuda.ptr(tabs), cuda.ptr(moduli),
-              B, rows, N, R, L, int(paired), mode=mode or None)
+    narrow, local = kernel_tables(tabs)
+    cuda.call("galois", cuda.ptr(out), cuda.ptr(x), cuda.ptr(narrow), cuda.ptr(moduli),
+              x.numel() // N, rows, N, R, L, int(paired) | (2 if local else 0),
+              mode=mode or None)
     return out
 
 
@@ -186,7 +225,8 @@ class GaloisTool:
 
     def _tables(self, kind: str, galois_elts: Sequence[int]) -> torch.Tensor:
         """Stacked tables int64[R, N] of one kind for the given elements on
-        the tool's device, uploaded once per element sequence and cached."""
+        the tool's device, uploaded once per element sequence and cached (on
+        a card with the kernel's int32 copy beside them)."""
         elts = tuple(int(e) for e in galois_elts)
         hit = self._device_tables.get((kind,) + elts)
         if hit is None:
@@ -200,6 +240,8 @@ class GaloisTool:
                 rows = [src | (neg.astype(np.int64) << self.coeff_count_power)
                         for src, neg in map(self._coeff_table, elts)]
             hit = torch.from_numpy(np.stack(rows)).to(self.device)
+            if hit.is_cuda:
+                kernel_tables(hit)
             self._device_tables[(kind,) + elts] = hit
         return hit
 

@@ -15,8 +15,9 @@ The transforms reproduce the JAX package's lazy dataflow bit for bit:
 Shoup butterflies, forward output lazy in [0, 4p) with the accumulating
 lane kept in [0, 2p) by a conditional subtract at every stage, inverse
 output lazy in [0, 2p) with n^{-1} folded into the last stage.  On a CUDA
-tensor they launch the hand-written kernel (csrc/ntt.cu), in its large-ring
-mode above N=16384; on a CPU tensor they run the plain per-stage radix-2
+tensor they launch the hand-written kernel (csrc/ntt.cu: one launch a
+transform, one CTA a row, or above N=16384 one cluster of CTAs a row, its
+large-ring mode); on a CPU tensor they run the plain per-stage radix-2
 version below.  :func:`ntt_sub_row` (the kernel's ``sub_row`` mode) runs
 the chunk-local stages of the coefficient-sharded NTT
 (parallel/ntt_sp.py) on one rank's chunk.
@@ -41,9 +42,9 @@ __all__ = ["NTTTables", "build_ntt_tables", "ntt_forward", "ntt_inverse",
 
 U64 = 0xFFFFFFFFFFFFFFFF
 
-# the kernel keeps a row of up to SHARED_N coefficients in one block's shared
-# memory (227 KB on Hopper) and runs larger rings, up to SEAL's cap, in its
-# large-ring mode (global-memory stages, then SHARED_N sub-rows)
+# the kernel's large-ring mode, counted apart (cuda.MODES): the rings above
+# SHARED_N, up to SEAL's cap (a row above 8192 coefficients runs on a cluster
+# of CTAs, csrc/ntt.cu)
 SHARED_N = 16384
 MAX_KERNEL_N = 65536
 
@@ -237,6 +238,12 @@ def ntt_plain(x, tables: NTTTables, inverse: bool, canonical: bool):
     return modops.reduce_once(x, p.reshape(-1, 1)) if canonical else x
 
 
+def _check_aligned(x):
+    # the kernel moves neighbouring coefficients as 16-byte pairs
+    if x.data_ptr() % 16:
+        raise ValueError("ntt kernel: the input rows must be 16-byte aligned")
+
+
 def _transform(x, tables: NTTTables, inverse: bool, canonical: bool):
     if not is_cuda(x, tables.modulus):
         return ntt_plain(x, tables, inverse, canonical)
@@ -259,12 +266,10 @@ def _transform(x, tables: NTTTables, inverse: bool, canonical: bool):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    large = n > SHARED_N
-    # the large-ring forward stages write scratch that its sub-row launch reads
-    tmp = torch.empty_like(x) if large and not inverse else None
-    cuda.call("ntt", cuda.ptr(out), cuda.ptr(x), cuda.ptr(tmp), x.numel() // n, L, log_n,
-              log_n, 0, *(cuda.ptr(t) for t in consts), int(inverse), int(canonical),
-              mode="large_ring" if large else None)
+    _check_aligned(x)
+    cuda.call("ntt", cuda.ptr(out), cuda.ptr(x), x.numel() // n, L, log_n, log_n, 0,
+              *(cuda.ptr(t) for t in consts), int(inverse), int(canonical),
+              mode="large_ring" if n > SHARED_N else None)
     return out
 
 
@@ -388,8 +393,8 @@ def ntt_sub_row(x, tables: NTTTables, rank: int, chunks: int, inverse: bool,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    tmp = torch.empty_like(x) if chunk > SHARED_N and not inverse else None
-    cuda.call("ntt", cuda.ptr(out), cuda.ptr(x), cuda.ptr(tmp), x.numel() // chunk, L, log_n,
+    _check_aligned(x)
+    cuda.call("ntt", cuda.ptr(out), cuda.ptr(x), x.numel() // chunk, L, log_n,
               chunk.bit_length() - 1, rank, *(cuda.ptr(t) for t in consts), int(inverse),
               int(canonical), mode="sub_row")
     return out

@@ -134,3 +134,66 @@ def test_rotate_many_equal_and_decodes(keys):
         for i in range(len(k["vals"])):
             assert abs(out[i] - vals[i + s]) < 1e-3, (s, out[: len(k["vals"])])
         assert max(abs(x - y) for x, y in zip(out, pout)) < 1e-5
+
+
+@pytest.mark.parametrize("log_n", [4, 10])
+@pytest.mark.parametrize("kind", ["ntt", "ntt_inverse", "coeff"])
+def test_kernel_tables_mirror_the_int64_tables(log_n, kind):
+    """The int32 tables that the card's kernel reads (ops.galois.kernel_tables)
+    equal the int64 tables they mirror, entry for entry, and those equal the
+    JAX package's (the NTT permutation, its inverse, and the power-basis
+    gather index with the sign flag in bit log N); one copy per table stack,
+    made anew when the stack is written to."""
+    from gemini_seal_tpu_torch.ops.galois import kernel_tables
+
+    n = 1 << log_n
+    jtool, ttool = JaxGaloisTool(log_n), GaloisTool(log_n, "cpu")
+    elts = jtool.get_elts_from_steps([1, -1, 3]) + [2 * n - 1]
+    tabs = {"ntt": ttool.ntt_tables, "ntt_inverse": ttool.ntt_inverse_tables,
+            "coeff": ttool.coeff_tables}[kind](elts)
+    if kind == "coeff":
+        want = [src | (neg.astype(np.int64) << log_n)
+                for src, neg in map(jtool._coeff_table, elts)]
+    else:
+        want = [jtool._ntt_table(e) for e in elts]
+        if kind == "ntt_inverse":
+            want = [np.argsort(t) for t in want]
+    narrow, local = kernel_tables(tabs)
+    assert local  # one slice a row at N <= 8192
+    assert narrow.dtype == torch.int32 and narrow.shape == (len(elts), n)
+    assert int(narrow.max()) < 2 * n and int(narrow.min()) >= 0
+    np.testing.assert_array_equal(narrow.numpy().astype(np.int64), tabs.numpy())
+    np.testing.assert_array_equal(narrow.numpy().astype(np.int64), np.stack(want))
+    assert kernel_tables(tabs)[0] is narrow
+    tabs[0, 0] ^= 1
+    assert not torch.equal(kernel_tables(tabs)[0][0], narrow[0])
+    tabs[0, 0] ^= 1
+
+
+@pytest.mark.parametrize("kind", ["ntt", "ntt_inverse", "coeff"])
+def test_kernel_tables_block_map(kind, monkeypatch):
+    """The block map behind the kernel's int32 tables, with the kernel's row
+    slice cut to 64 coefficients so that an N=1024 row spans 16 slices: the
+    NTT permutations (and their inverses) map every output slice to one
+    input slice, and entry [r, b] names the output slice that reads input
+    slice b; a power-basis table reads across slices (-1 throughout)."""
+    from gemini_seal_tpu_torch.ops import galois as tg
+
+    monkeypatch.setattr(tg, "KERNEL_SLICE", 64)
+    n, C = 1024, 16
+    ttool = GaloisTool(10, "cpu")
+    elts = ttool.get_elts_from_steps([1, -1, 3, 5]) + [2 * n - 1]
+    tabs = {"ntt": ttool.ntt_tables, "ntt_inverse": ttool.ntt_inverse_tables,
+            "coeff": ttool.coeff_tables}[kind](elts).clone()
+    narrow, local = tg.kernel_tables(tabs)
+    assert local == (kind != "coeff")
+    R = len(elts)
+    bmap = torch.as_strided(narrow, (R * n + R * C,), (1,))[R * n:].reshape(R, C)
+    if kind == "coeff":
+        assert bool((bmap == -1).all())
+        return
+    src = (tabs.numpy() & (n - 1)) // 64
+    for r in range(R):
+        for b in range(C):
+            c = int(bmap[r, b])
+            assert (src[r, c * 64:(c + 1) * 64] == b).all(), (r, b, c)

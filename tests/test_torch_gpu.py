@@ -1,8 +1,10 @@
 """Card tests: each hand-written kernel against its plain PyTorch version on
 the same inputs on the card, bit for bit (the BFV slice's at config 3's
-ring, with the 60-bit Bsk primes and m_tilde = 2^32; the NTT's large-ring
-mode at N=32768 and 65536; the Galois kernel's signed and paired modes and
-the contraction's broadcast mode), and the fused step, the train step, the
+ring, with the 60-bit Bsk primes and m_tilde = 2^32; the NTT at every ring
+from N=2 to 65536 with the top of each lazy range planted, its large-ring
+mode one launch a transform; the Galois kernel in all four modes at N=16,
+8192, 32768 and 65536 with 1, 3 and 8 tables; the contraction's broadcast
+mode), and the fused step, the train step, the
 hoisted rotations in both key forms, the BFV steps and rotations and the
 deep polynomial against the plain path, keygen, encryption and
 decryption at N=32768, the negacyclic monomial multiply (both modes), the
@@ -63,15 +65,21 @@ def _both(fn, *args, **kwargs):
     return got, want
 
 
-@pytest.mark.parametrize("log_n", [10, 13, 14])
+@pytest.mark.parametrize("log_n", range(1, 15))
 @pytest.mark.parametrize("name,mult", [("ntt_forward_lazy", 4), ("ntt_forward", 4),
                                        ("ntt_inverse_lazy", 2), ("ntt_inverse", 2)])
 def test_ntt_kernel(card, log_n, name, mult):
+    """Every one-launch ring, N = 2 .. 16384: stage counts that are and are
+    not a multiple of the stages a thread runs in registers, inputs over the
+    whole lazy range with its top planted."""
     n = 1 << log_n
     mods = _mods(n)
     tables = tn.build_ntt_tables(log_n, mods).to(card)
-    x = to_tensor(_res(np.random.default_rng(log_n), mods, (4,), n, mult), card)
-    got, want = _both(getattr(tn, name), x, tables)
+    x = _res(np.random.default_rng(log_n), mods, (4,), n, mult)
+    x[0, :, 0] = [mult * p - 1 for p in mods]
+    x[1, :, -1] = [mult * p - 1 for p in mods]
+    x[2, :, n // 2] = [(mult // 2) * p for p in mods]
+    got, want = _both(getattr(tn, name), to_tensor(x, card), tables)
     assert torch.equal(got, want)
 
 
@@ -106,10 +114,37 @@ def test_ntt_kernel_large_ring(card, log_n, name, mult):
     mods, tables = _LARGE_TABLES[log_n]
     x = _res(np.random.default_rng(log_n), mods, (2,), n, mult)
     x[0, :, -1] = [mult * p - 1 for p in mods]
+    x[1, :, 0] = [mult * p - 1 for p in mods]
+    x[1, :, n // 2] = [(mult // 2) * p for p in mods]
     before = cuda.LAUNCHES["ntt:large_ring"]
     got, want = _both(getattr(tn, name), to_tensor(x, card), tables)
     assert cuda.LAUNCHES["ntt:large_ring"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("log_n", [15, 16])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_kernel_large_ring_is_one_launch(card, log_n, inverse):
+    """A large-ring transform is one device kernel (one cluster launch): no
+    global-memory stage launch and no scratch buffer are left."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 1 << log_n
+    if log_n not in _LARGE_TABLES:
+        mods = _mods(n, (60, 59, 40))
+        _LARGE_TABLES[log_n] = (mods, tn.build_ntt_tables(log_n, mods).to(card))
+    mods, tables = _LARGE_TABLES[log_n]
+    x = to_tensor(_res(np.random.default_rng(5), mods, (2,), n), card)
+    fn = tn.ntt_inverse if inverse else tn.ntt_forward
+    fn(x, tables)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(x, tables)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "ntt_kernel" in kernels[0], kernels
+    assert not any("ntt_stage" in k for k in kernels)
 
 
 @pytest.mark.parametrize("square", [False, True])
@@ -261,6 +296,34 @@ def test_galois_kernel_modes(card, log_n, mode):
         assert torch.equal(one, got[:, :, 0].reshape(one.shape))
 
 
+@pytest.mark.parametrize("log_n", [4, 13, 15, 16])
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("mode", ["unsigned", "signed", "paired", "signed_paired"])
+def test_galois_kernel_every_mode_and_size(card, log_n, R, mode):
+    """All four modes at N = 16, 8192 (one CTA a row), 32768 and 65536 (a
+    cluster of 4 and 8 CTAs a row), R = 1, 3, 8 tables, 3 x 3 rows (no
+    multiple of a tile), a zero planted where the sign flips."""
+    n = 1 << log_n
+    tool = GaloisTool(log_n, card)
+    elts = tool.get_elts_from_steps(list(range(1, R)) + [-1])
+    mods = _mods(n, (60, 50, 40))
+    moduli = to_tensor(np.array(mods, dtype=np.uint64), card)
+    signed, paired = mode.startswith("signed"), mode.endswith("paired")
+    tabs = tool.coeff_tables(elts) if signed else tool.ntt_tables(elts)
+    lead = (3, R) if paired else (3,)
+    x = _res(np.random.default_rng(log_n * 10 + R), mods, lead, n)
+    src, neg = tool._coeff_table(elts[0])
+    x[..., src[neg][:8]] = 0
+    x = to_tensor(x, card)
+    before = dict(cuda.LAUNCHES)
+    got, want = _both(galois_permute, x, tabs, moduli if signed else None, paired=paired)
+    assert cuda.LAUNCHES["galois"] - before["galois"] == 1
+    if mode != "unsigned":
+        assert cuda.LAUNCHES[f"galois:{mode}"] - before[f"galois:{mode}"] == 1
+    assert got.shape == (3, R, 3, n)
+    assert torch.equal(got, want)
+
+
 def test_galois_kernel_rejects_what_it_cannot_take(card):
     tool = GaloisTool(10, card)
     tabs = tool.ntt_tables([3])
@@ -271,9 +334,9 @@ def test_galois_kernel_rejects_what_it_cannot_take(card):
         galois_permute(torch.zeros((3, 1024), dtype=torch.int32, device=card), tabs)
     with pytest.raises(ValueError, match="tabs"):
         galois_permute(torch.zeros((3, 512), dtype=torch.int64, device=card), tabs)
-    shifted = torch.cat([tabs.reshape(-1), tabs.reshape(-1)])[1:1025].reshape(1, 1024)
+    unaligned = torch.zeros(3 * 1024 + 1, dtype=torch.int64, device=card)[1:].reshape(3, 1024)
     with pytest.raises(ValueError, match="aligned"):
-        galois_permute(torch.zeros((3, 1024), dtype=torch.int64, device=card), shifted)
+        galois_permute(unaligned, tabs)
     moduli = torch.ones(3, dtype=torch.int64, device=card)
     with pytest.raises(ValueError, match="whole sets"):
         galois_permute(torch.zeros((4, 1024), dtype=torch.int64, device=card), tabs, moduli)
