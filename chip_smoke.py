@@ -134,9 +134,11 @@ The script
    prints each one's -Xptxas -v summary, the count of IMMA (int8
    tensor-core) instructions in ntt_mxu's SASS (cuobjdump -sass), the
    registers and stack bytes (cuobjdump -res-usage; a stack frame means
-   spills) of each instantiation of ntt_mxu, ntt (direction, row length)
-   and galois (signed, paired, row mode), and the N=8192 ntt kernels' SASS
-   instructions a butterfly;
+   spills) of each instantiation of ntt_mxu, ntt (direction, row length),
+   galois (signed, paired, row mode) and contract (coefficients a unit,
+   per-coefficient weights, staged inputs), the N=8192 ntt kernels' SASS
+   instructions a butterfly, and the contract kernels' SASS instructions a
+   MAC and an output;
 3. drives the twenty-four paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
@@ -291,6 +293,9 @@ RESOURCE_KERNELS = {
     "ntt": (r"ntt_kernelILb(\d)ELi(\d+)E", ("inverse", "log2 row")),
     # mode: 0 the whole row in one CTA, 1 one slice a CTA, 2 a cluster a row
     "galois": (r"galois_kernelILb(\d)ELb(\d)ELi(\d)E", ("signed", "paired", "mode")),
+    # vec: coefficients a column unit; w_has_n: per-coefficient weights (keys);
+    # staged: the inputs staged in shared memory (else read directly)
+    "contract": (r"contract_kernelILi(\d)ELb(\d)ELb(\d)E", ("vec", "w_has_n", "staged")),
 }
 
 
@@ -312,21 +317,98 @@ def kernel_resources(cuda, kernel: str, lib_path: str) -> dict:
     return res
 
 
+def _sass_functions(sass: str):
+    """{mangled name: [(address, opcode, operands)]} of a cuobjdump -sass
+    listing; a branch target label (.L_x_N) is replaced by the address of
+    the instruction that follows it."""
+    import re
+
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split(None, 1)[0]
+        labels, pending, ins = {}, [], []
+        for line in fn.splitlines()[1:]:
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+                          line)
+            if m:
+                addr = int(m.group(1), 16)
+                for lab in pending:
+                    labels[lab] = addr
+                pending = []
+                ins.append((addr, m.group(2), m.group(3)))
+        out[name] = [(a, op, labels.get(
+            next(iter(re.findall(r"(\.L_x_\d+)", rest)), ""), rest)) for a, op, rest in ins]
+    return out
+
+
+def _lane_ops(ins):
+    """Instructions that take a slot of the 64-lane pipes: uniform-datapath
+    (U*), NOP, BRA and EXIT take none."""
+    return [i for i in ins if not i[1].startswith(("U", "NOP", "BRA", "EXIT"))]
+
+
 def ntt_instructions_per_butterfly(cuda, lib_path: str) -> dict:
     """Static SASS instructions of the N=8192 ntt kernels (forward, inverse)
     over the butterflies a thread runs a row (13 stages x 4): the row loop
     runs once a row, so this is what each butterfly costs in issue slots,
-    memory and index work included.  Uniform-datapath instructions (U*),
-    NOP, BRA and EXIT are left out: they take no slot of the 64-lane pipes."""
+    memory and index work included (``_lane_ops``)."""
     import re
 
     out = {}
-    for fn in re.split(r"\n\s*Function : ", cuobjdump(cuda, "-sass", lib_path))[1:]:
-        m = re.match(r"_Z10ntt_kernelILb(\d)ELi13E", fn)
+    for name, ins in _sass_functions(cuobjdump(cuda, "-sass", lib_path)).items():
+        m = re.match(r"_Z10ntt_kernelILb(\d)ELi13E", name)
         if m:
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
-            lanes = [o for o in ops if not o.startswith(("U", "NOP", "BRA", "EXIT"))]
-            out["inverse" if m.group(1) == "1" else "forward"] = len(lanes) / 52
+            out["inverse" if m.group(1) == "1" else "forward"] = len(_lane_ops(ins)) / 52
+    return out
+
+
+def contract_instructions(cuda, lib_path: str) -> dict:
+    """Static SASS instructions of each contract kernel instantiation a MAC
+    and an output.  The k loop (unrolled twice, ``#pragma unroll 2``) is the
+    innermost backward branch whose body multiplies (IMAD.WIDE) and stages
+    nothing (no STS); per MAC = its instructions / (2 x coefficients a
+    unit); per output = the instructions of the item loop around it outside
+    the k loop (the Barrett, the store, the item's index steps and an odd
+    K's last term) / coefficients a unit.  An output at K terms issues
+    about per_output + K x per_mac.  In the unstaged instantiations
+    (staged=0) the k loop also holds the pre-scale's code, which runs only
+    in a call that has one, so their counts are upper bounds."""
+    import re
+
+    out = {}
+    for name, ins in _sass_functions(cuobjdump(cuda, "-sass", lib_path)).items():
+        m = re.search(RESOURCE_KERNELS["contract"][0], name)
+        if not m:
+            continue
+        vec = int(m.group(1))
+        loops = []
+        for addr, op, target in ins:
+            if op.startswith("BRA"):
+                hexes = re.findall(r"0x[0-9a-f]+", target) if isinstance(target, str) else []
+                t = int(hexes[-1], 16) if hexes else target
+                if isinstance(t, int) and t <= addr:
+                    loops.append((t, addr))
+        spans = {lp: [i for i in ins if lp[0] <= i[0] <= lp[1]] for lp in loops}
+        k_loops = [lp for lp, body in spans.items()
+                   if any(i[1].startswith("IMAD.WIDE") for i in body)
+                   and not any(i[1].startswith(("STS", "BAR")) for i in body)]
+        key = ",".join(f"{n}={v}" for n, v in zip(RESOURCE_KERNELS["contract"][1], m.groups()))
+        if not k_loops:
+            out[key] = {"error": "no k loop found", "loops": len(loops)}
+            continue
+        k_loop = min(k_loops, key=lambda lp: lp[1] - lp[0])
+        outer = [lp for lp in loops if lp[0] <= k_loop[0] and lp[1] >= k_loop[1] and lp != k_loop]
+        mac = len(_lane_ops(spans[k_loop])) / (2 * vec)
+        entry = {"per_mac": mac, "k_loop_instructions": len(_lane_ops(spans[k_loop]))}
+        if outer:
+            item = min(outer, key=lambda lp: lp[1] - lp[0])
+            entry["per_output"] = (len(_lane_ops(spans[item]))
+                                   - len(_lane_ops(spans[k_loop]))) / vec
+        out[key] = entry
     return out
 
 
@@ -645,11 +727,13 @@ def work(kernel, fn_name, args, kwargs, result):
         a, b = args[0], args[1]
         ops = (a.numel() // 2) * (3 if b is None else 4) * IMAD_MULMOD
     elif kernel == "contract":
+        # the input is counted once however many groups read it (the two key
+        # components, R counter-rotated keys): bytes_once above
         a, w = args[0], args[1]
-        K = w.shape[1]
+        G, K = w.shape[0], w.shape[1]
         ops = outs[0].numel() * (live_k * IMAD_MAC + IMAD_BARRETT128)
-        if kwargs.get("prescale") is not None:  # once per needed input element
-            ops += a.numel() // K * live_k * IMAD_MULMOD
+        if kwargs.get("prescale") is not None:  # once per needed input element and group
+            ops += a.numel() // K * live_k * IMAD_MULMOD * (G if a.shape[-4] == 1 else 1)
     elif kernel == "behz":
         # sm_mrq: low-word multiply for r, the 128-bit q*r, barrett_reduce_128
         # and a mul_mod per output; sk_tail: alpha once per coefficient and
@@ -974,7 +1058,9 @@ def main(argv=None) -> int:
               "resources": {k: kernel_resources(cuda, k, report[k]["path"])
                             for k in RESOURCE_KERNELS},
               "ntt_sass_instructions_per_butterfly": ntt_instructions_per_butterfly(
-                  cuda, report["ntt"]["path"])})
+                  cuda, report["ntt"]["path"]),
+              "contract_sass_instructions": contract_instructions(
+                  cuda, report["contract"]["path"])})
         if not imma:
             raise AssertionError("ntt_mxu's SASS has no IMMA (int8 tensor-core) instruction")
 
@@ -2563,7 +2649,8 @@ def main(argv=None) -> int:
         "tensor_product": "gemini_seal_tpu/models/pipelines.py:72 _convolve3, :87 _square3",
         "contract": "gemini_seal_tpu/ops/modops.py:218 accumulate_mulmod_128",
         "contract:broadcast": "gemini_seal_tpu/models/pipelines.py:318 "
-                              "_shared_digit_inner_product",
+                              "_shared_digit_inner_product; gemini_seal_tpu/ops/keyswitch.py:352 "
+                              "keyswitch_inner_product (both key components in one launch)",
         "elementwise": "gemini_seal_tpu/ops/keyswitch.py:438 fused_moddown mul_mod/add_mod "
                        "epilogues; gemini_seal_tpu/ops/rnsops.py:356 fast_floor, :182 "
                        "divide_and_round_q_last, :463 divide_and_round_multi",

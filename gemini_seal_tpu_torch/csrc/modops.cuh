@@ -16,19 +16,20 @@ typedef unsigned long long u64;
 
 __device__ __forceinline__ u64 mulhi64(u64 a, u64 b) { return __umul64hi(a, b); }
 
-// floor(x * floor(2^128/p) / 2^128) estimate, one correction: [0, 2^128) -> [0, p)
+// floor(x * floor(2^128/p) / 2^128) estimate, one correction: [0, 2^128) -> [0, p).
+// The JAX step sequence, with its two carries taken by PTX add-with-carry
+// (mad.lo.cc / madc.hi) rather than a compare and a select.
 __device__ __forceinline__ u64 barrett_reduce_128(u64 hi, u64 lo, u64 p, u64 r0, u64 r1) {
-    u64 carry = __umul64hi(lo, r0);
-    u64 t2_lo = lo * r1;
-    u64 t2_hi = __umul64hi(lo, r1);
-    u64 tmp1 = t2_lo + carry;
-    u64 tmp3 = t2_hi + (u64)(tmp1 < t2_lo);
-    t2_lo = hi * r0;
-    t2_hi = __umul64hi(hi, r0);
-    u64 tmp1b = tmp1 + t2_lo;
-    u64 carry2 = t2_hi + (u64)(tmp1b < tmp1);
-    u64 tmp1c = hi * r1 + tmp3 + carry2;
-    u64 result = lo - tmp1c * p;
+    u64 tmp1, tmp3, tmp1b, carry2;
+    const u64 carry = __umul64hi(lo, r0);
+    // tmp3:tmp1 = lo * r1 + carry
+    asm("mad.lo.cc.u64 %0, %2, %3, %4;\n\tmadc.hi.u64 %1, %2, %3, 0;"
+        : "=l"(tmp1), "=l"(tmp3) : "l"(lo), "l"(r1), "l"(carry));
+    // carry2:tmp1b = hi * r0 + tmp1
+    asm("mad.lo.cc.u64 %0, %2, %3, %4;\n\tmadc.hi.u64 %1, %2, %3, 0;"
+        : "=l"(tmp1b), "=l"(carry2) : "l"(hi), "l"(r0), "l"(tmp1));
+    const u64 tmp1c = hi * r1 + tmp3 + carry2;
+    const u64 result = lo - tmp1c * p;
     return result >= p ? result - p : result;
 }
 
@@ -88,12 +89,10 @@ __device__ __forceinline__ u64 reduce_twice(u64 x, u64 p) {
 }
 
 // Exact 128-bit accumulator (the reference's FMAU128, and the JAX digit-plane
-// sum): hi:lo += a * b.
+// sum): hi:lo += a * b, the carry out of the low word by add-with-carry.
 __device__ __forceinline__ void mac128(u64 &hi, u64 &lo, u64 a, u64 b) {
-    u64 plo = a * b;
-    u64 phi = __umul64hi(a, b);
-    lo += plo;
-    hi += phi + (u64)(lo < plo);
+    asm("mad.lo.cc.u64 %0, %2, %3, %0;\n\tmadc.hi.u64 %1, %2, %3, %1;"
+        : "+l"(lo), "+l"(hi) : "l"(a), "l"(b));
 }
 
 static inline unsigned grid_for(long long total, int threads) {

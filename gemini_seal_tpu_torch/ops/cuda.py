@@ -56,7 +56,7 @@ KERNELS = {
         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "contract": ("contract.cu", "gst_contract", [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "elementwise": ("elementwise.cu", "gst_elementwise", [
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "galois": ("galois.cu", "gst_galois", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

@@ -333,24 +333,29 @@ def keyswitch_inner_product(ct_k, key_vector_data, plan: KeySwitchPlan,
     """128-bit-exact inner product of mod-up digits with a key-switch key,
     then the special-prime rescale (evaluator.cpp:2313-2361).
 
+    Both key components are the two weight sets of one ``contract`` launch
+    in its broadcast mode: the digits are read once for both.
+
     ct_k: [..., n_bundles, n_ext, N] NTT-domain digits;
     key_vector_data: [n_bundles, 2, L_key, N].
     Returns (delta0, delta1): [..., n_ct, N] (rescale_special of each
-    accumulator), or with raw=True the accumulators: [..., n_ext, N].
+    accumulator), or with raw=True the accumulators: [..., n_ext, N], two
+    views of one [..., 2, n_ext, N] tensor.
     """
     nb, n_ext, N = ct_k.shape[-3:]
+    if key_vector_data.shape[0] < nb:
+        raise RuntimeError(f"the key has {key_vector_data.shape[0]} bundles, the digits {nb}")
     ext = plan.ext_limbs
     # a key made for the first level has a bundle for each of its limbs; a
-    # lower level uses the first nb of them
-    key_ext = key_vector_data[:nb].index_select(-2, plan.ext_key_indices)
+    # lower level uses the first nb of them.  One index_select gives both
+    # components' rows as weights [2, nb, n_ext, N].
+    key_ext = key_vector_data[:nb].transpose(0, 1).index_select(-2, plan.ext_key_indices)
     a = ct_k.contiguous().reshape(ct_k.shape[:-3] + (1, nb, n_ext, N))
-    out = []
-    for l in range(2):
-        w = key_ext[:, l].reshape(1, nb, n_ext, N).contiguous()
-        acc = contract_mulmod_128(a, w, ext.p.reshape(-1), ext.ratio0.reshape(-1),
-                                  ext.ratio1.reshape(-1))
-        acc = acc.reshape(ct_k.shape[:-3] + (n_ext, N))
-        out.append(acc if raw else rescale_special(acc, plan, is_ntt_output, ntt=ntt))
+    acc = contract_mulmod_128(a, key_ext, ext.p.reshape(-1), ext.ratio0.reshape(-1),
+                              ext.ratio1.reshape(-1))         # [..., 2, n_ext, N]
+    out = [acc[..., l, :, :] for l in range(2)]
+    if not raw:
+        out = [rescale_special(x, plan, is_ntt_output, ntt=ntt) for x in out]
     return out[0], out[1]
 
 

@@ -15,8 +15,9 @@ On the card the same arithmetic runs inside the kernels (csrc/modops.cuh).
 This module also holds the wrappers of the two kernels built from it:
 
 - :func:`contract_mulmod_128` (kernel ``contract``): the 128-bit-exact
-  multiply-accumulate contraction behind accumulate_mulmod_128's three
-  call sites (mod-up, key inner product, _dot_mod_128);
+  multiply-accumulate contraction behind accumulate_mulmod_128's call
+  sites (mod-up, key inner product, _dot_mod_128, the weighted sums), with
+  its launch geometry :func:`contract_geometry`;
 - :func:`rns_elementwise` (kernel ``elementwise``): the per-limb
   add/sub/neg/mul_mod chains of the ring ops and of the fused mod-down,
   and the Barrett-64 reduction of modulo_poly_coeffs (its ``reduce64``
@@ -24,6 +25,8 @@ This module also holds the wrappers of the two kernels built from it:
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -51,6 +54,7 @@ __all__ = [
     "accumulate_mulmod_128",
     "contract_mulmod_128",
     "contract_plain",
+    "contract_geometry",
     "rns_elementwise",
     "elementwise_plain",
     "OPS",
@@ -239,6 +243,80 @@ def contract_plain(a, w, p, ratio0, ratio1, prescale=None):
         ((a[..., k, :, :], w[:, k]) for k in range(K)), pj, r0, r1)
 
 
+# the contraction's launch geometry (csrc/contract.cu)
+_TILE_MIN = 8           # column units a tile keeps while it can: 64-128 contiguous bytes a row
+_THREADS_MAX = 256
+_STAGE_MAX = 32 * 1024  # bytes of staged inputs a CTA
+_SMEM_MAX = 48 * 1024   # bytes of shared memory a CTA: moduli, weights, stage
+_FILL = 132 * 1024      # threads that keep every SM of the H100 busy
+_GRID_YZ = 65535
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def contract_geometry(R, Ga, G, K, J, Ja, N, Nw, prescale: bool, vec: int,
+                      shoup: Optional[bool] = None) -> dict:
+    """The launch geometry of one ``contract`` call, picked by shape.
+
+    A CTA owns a tile of ``tile`` column units (``vec`` coefficients each)
+    of one row r and one input group z (``z_count`` of them); its
+    ``threads`` threads compute the ``ng`` x J output items of each unit.
+    ``ng`` = G in broadcast mode without a pre-scale (one input for every
+    group), else 1.  Where an input feeds several outputs (broadcast, or
+    Ja = 1 with J > 1) the CTA stages the tile's K x Ja input rows once
+    (pre-scaled once) in shared memory (``staged``); else the items read
+    their inputs directly.  The output moduli and the Nw = 1 weights share
+    the CTA's shared memory with the stage.  The tile is as wide as the
+    stage allows, and narrowed while a call has too few threads to fill the
+    card and each thread still has more than one item: a call of one row
+    then spreads its outputs over threads of their own.  A call of more
+    than two waves of threads pre-scales by Shoup constants that each CTA
+    computes once (``shoup``); a smaller one by the Barrett mul_mod, which
+    needs no set-up before the first load.  ``shoup`` True or False forces
+    one of the two (port_tools/contract_prescale.py times both).
+    """
+    units = N // vec
+    shared = Ga == 1 and G > 1 and not prescale
+    ng = G if shared else 1
+    z_count = 1 if shared else G
+    staged = ng > 1 or (Ja == 1 and J > 1)
+    if z_count > _GRID_YZ:
+        raise ValueError(f"contract: {G} groups exceed the grid")
+    if max(G * J, K * Ja * Ga, G * K * J if Nw > 1 else 0) * N >= 1 << 31:
+        raise ValueError("contract: a row's offsets exceed 32 bits")
+
+    def fixed(shoup):
+        return (3 * J + (0 if Nw > 1 else G * K * J) + (3 * K if shoup else 0) + 1) // 2 * 16
+
+    budget = min(_STAGE_MAX, _SMEM_MAX - fixed(prescale))
+
+    def stage(tp):
+        return K * Ja * tp * vec * 8 if staged else 0
+
+    def threads(tp):
+        return min(_THREADS_MAX, max(32, _pow2_ceil(ng * J * tp)))
+
+    tile = min(_THREADS_MAX, _pow2_ceil(units))
+    while tile > 1 and stage(tile) > budget:
+        tile //= 2
+    if stage(tile) > budget:
+        raise ValueError(f"contract: {K} x {Ja} input rows and {G} x {K} x {J} weights "
+                         "exceed a CTA's shared memory")
+    while (tile > _TILE_MIN and ng * J * tile > _THREADS_MAX
+           and R * z_count * -(-units // tile) * _THREADS_MAX < _FILL):
+        tile //= 2
+    tiles = -(-units // tile)
+    if shoup is None:
+        shoup = R * z_count * tiles * threads(tile) > 2 * _FILL
+    shoup = prescale and shoup
+    return {"vec": vec, "tile": tile, "log_tp": tile.bit_length() - 1,
+            "threads": threads(tile), "tiles": tiles, "z_count": z_count, "ng": ng,
+            "grid_y": min(R, _GRID_YZ), "staged": int(staged), "shoup": int(shoup),
+            "smem": fixed(shoup) + stage(tile)}
+
+
 def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None):
     """out[..., g, j, n] = sum_k A'[..., g|0, k, j|0, n] * W[g, k, j, n|0] mod p_j.
 
@@ -265,12 +343,16 @@ def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None):
     out = torch.empty(a.shape[:-4] + (G, J, N), dtype=torch.int64, device=a.device)
     if out.numel() == 0:
         return out
+    vec = 2 if N % 2 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, w, out)) else 1
+    geo = contract_geometry(R, Ga, G, K, J, Ja, N, Nw, prescale is not None, vec)
     s = prescale if prescale is not None else (None, None, None, None)
     broadcast = Ga == 1 and G > 1
     cuda.call("contract", cuda.ptr(out), cuda.ptr(a), cuda.ptr(w),
               cuda.ptr(p), cuda.ptr(ratio0), cuda.ptr(ratio1),
               cuda.ptr(s[0]), cuda.ptr(s[1]), cuda.ptr(s[2]), cuda.ptr(s[3]),
-              R, G, K, J, int(Ja > 1), int(not broadcast), N, int(Nw > 1),
+              R, G, Ga, K, J, Ja, N, int(Nw > 1), vec, geo["log_tp"], geo["threads"],
+              geo["z_count"], geo["ng"], geo["grid_y"], geo["staged"], geo["shoup"],
+              geo["smem"],
               mode="broadcast" if broadcast else None)
     return out
 

@@ -67,10 +67,12 @@ class _RankConsts:
         self.diag = plan.bundle_diag[:, lo:hi].contiguous()
         self.neg_hat = plan.neg_hat_pj_qi[lo:hi].contiguous()     # [rpn, nsp]
         self.inv_p = plan.inv_P_qi[lo:hi].contiguous()            # [rpn, 1]
-        # key rows: [..., nb, 2, rows, N] -> per component [..., nb, rows, N]
+        # key rows: [..., nb, 2, rows, N] -> [2, ..., nb, rows, N], [l] the
+        # component l; one key's [2, nb, rows, N] is the two weight sets of
+        # one contraction
         k = key[..., :nb, :, :, :]
-        self.key_own = [k[..., :, l, lo:hi, :].contiguous() for l in range(2)]
-        self.key_sp = [k[..., :, l, n_ct_all:n_ct_all + nsp, :].contiguous() for l in range(2)]
+        self.key_own = k[..., lo:hi, :].movedim(-3, 0).contiguous()
+        self.key_sp = k[..., n_ct_all:n_ct_all + nsp, :].movedim(-3, 0).contiguous()
         # the rescale by q_last (rns.cpp:719-729 constants, padded to n_ct
         # rows: the dropped row's entries are dummies, its output is zeroed)
         if n_ct >= 2:
@@ -155,7 +157,8 @@ def hoist_digits(tgt_local, c: _RankConsts, plan: KeySwitchPlan, lg, is_ntt_form
 def _inner(digits, key_rows, limbs: LimbConstants):
     """sum_b digits[..., b, rows, N] * key_rows[..., b, rows, N] mod p: one
     contraction.  digits [..., G|1, nb, rows, N] with key_rows [G, nb, rows,
-    N] (G rotations) gives [..., G, rows, N]."""
+    N] (G rotations, or the two components of one key) gives [..., G, rows,
+    N]."""
     return contract_mulmod_128(digits, key_rows, limbs.p.reshape(-1), limbs.ratio0.reshape(-1),
                                limbs.ratio1.reshape(-1))
 
@@ -194,11 +197,12 @@ def switch_local(tgt_local, c: _RankConsts, plan: KeySwitchPlan, lg, is_ntt_form
     """The per-rank switch body: one all_gather, everything else local.
     Returns (d0, d1) for this rank's rows."""
     dig_own, dig_sp = hoist_digits(tgt_local, c, plan, lg, is_ntt_form)
-    key_own = [k.unsqueeze(0) for k in c.key_own]
-    key_sp = [k.unsqueeze(0) for k in c.key_sp]
-    d0, d1 = _inner_rescale(dig_own.unsqueeze(-4), dig_sp.unsqueeze(-4), key_own, key_sp, c,
-                            plan, is_ntt_form)
-    return d0.squeeze(-3), d1.squeeze(-3)
+    # both key components in one contraction a row set: [..., 2, rows, N]
+    acc_own = _inner(dig_own.unsqueeze(-4), c.key_own, c.limbs)
+    acc_sp = _inner(dig_sp.unsqueeze(-4), c.key_sp, plan.sp_limbs)
+    d0, d1 = [sp_fold(acc_own[..., l, :, :], acc_sp[..., l, :, :], c, plan, is_ntt_form)
+              for l in range(2)]
+    return d0, d1
 
 
 def switch_key_limb_sharded(target_local, key_vector_data, plan: KeySwitchPlan, group,

@@ -13,10 +13,15 @@ Each RUN.log is the standard output of one ``python3 chip_smoke.py`` run
 - per kernel label of ``--kernels`` (by default every ``ntt`` and
   ``galois`` label) and per path: the summed ms of the step's calls, with
   the bound and the library call's ms of the first run (``kernels`` line);
+- per path: K3 ``contract`` in all its modes (``contract`` and
+  ``contract:broadcast`` summed): the ms a step of the step's calls, the
+  launches a step, and the bound and plain ms of the first run
+  (``kernels`` line);
 - per path: the device ms a step of K1 (kernels named ``ntt_kernel``, and
   ``ntt_stage_kernel``, the large-ring stage launches of the kernel's
-  earlier design, so that an older tree's run compares) and K5
-  (``galois_kernel``) (``profile`` lines, first turn);
+  earlier design, so that an older tree's run compares), K3
+  (``contract_kernel``) and K5 (``galois_kernel``) (``profile`` lines,
+  first turn);
 - the four-step int8 NTT against K1 (``ntt_mxu`` lines): the MXU/K1 ratio
   of NTTs/s both ways and the CUDA-event ms a transform of each.
 """
@@ -106,6 +111,32 @@ def main(argv=None) -> int:
         print("| all | " + " | ".join(tot) + f" | {fmt(rows[0]['bound_ms'])} | "
               f"{fmt(rows[0].get('library_ms'))} |")
 
+    # K3 in all its modes
+    k3 = [[k.get(label) for label in ("contract", "contract:broadcast")] for k in klines]
+    if any(r for rows in k3 for r in rows):
+        def launches(row, path):
+            v = row["launches_per_step"].get(path, 0) if row else 0
+            return v[0] if isinstance(v, list) else v
+
+        print("\n**K3 contract, all modes** (ms a step summed over the step's calls; "
+              "launches a step, the first form of a two-form path)\n")
+        print("| path | " + " | ".join(f"ms, launches ({i + 1})" for i in range(len(runs)))
+              + " | bound | plain |")
+        print("|---|" + "---|" * (len(runs) + 2))
+        kpaths = list(dict.fromkeys(p for rows in k3 for r in rows if r
+                                    for p in r["per_step_by_path"]))
+        for path in kpaths:
+            cells = []
+            for rows in k3:
+                ms = [r["per_step_by_path"].get(path, {}).get("ms") for r in rows if r]
+                ms = [v for v in ms if v is not None]
+                cells.append(f"{fmt(sum(ms)) if ms else '-'}, "
+                             f"{sum(launches(r, path) for r in rows)}")
+            first = [r["per_step_by_path"].get(path, {}) for r in k3[0] if r]
+            bound = sum(f.get("bound_ms") or 0 for f in first)
+            plain = sum(f.get("plain_ms") or 0 for f in first)
+            print(f"| {path} | " + " | ".join(cells) + f" | {fmt(bound)} | {fmt(plain)} |")
+
     # profiles
     prof = []
     for _, lines in runs:
@@ -116,7 +147,7 @@ def main(argv=None) -> int:
         prof.append(d)
     ppaths = list(dict.fromkeys(p for d in prof for p in d))
     print("\n| path (profile, ms a step) | "
-          + " | ".join(f"K1, K5, all ({i + 1})" for i in range(len(runs))) + " |")
+          + " | ".join(f"K1, K3, K5, all ({i + 1})" for i in range(len(runs))) + " |")
     print("|---|" + "---|" * len(runs))
     for path in ppaths:
         cells = []
@@ -127,9 +158,11 @@ def main(argv=None) -> int:
                 continue
             k1 = sum(r["device_ms_per_step"] for r in o["by_kernel"]
                      if "ntt_kernel" in r["name"] or "ntt_stage_kernel" in r["name"])
+            k3 = sum(r["device_ms_per_step"] for r in o["by_kernel"]
+                     if "contract_kernel" in r["name"])
             k5 = sum(r["device_ms_per_step"] for r in o["by_kernel"]
                      if "galois_kernel" in r["name"])
-            cells.append(f"{fmt(k1)}, {fmt(k5)}, {fmt(o['device_ms_per_step'])}")
+            cells.append(f"{fmt(k1)}, {fmt(k3)}, {fmt(k5)}, {fmt(o['device_ms_per_step'])}")
         print(f"| {path} | " + " | ".join(cells) + " |")
 
     # the four-step int8 NTT against K1

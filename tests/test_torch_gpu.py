@@ -3,8 +3,10 @@ the same inputs on the card, bit for bit (the BFV slice's at config 3's
 ring, with the 60-bit Bsk primes and m_tilde = 2^32; the NTT at every ring
 from N=2 to 65536 with the top of each lazy range planted, its large-ring
 mode one launch a transform; the Galois kernel in all four modes at N=16,
-8192, 32768 and 65536 with 1, 3 and 8 tables; the contraction's broadcast
-mode), and the fused step, the train step, the
+8192, 32768 and 65536 with 1, 3 and 8 tables; the contraction in every
+form of its callers, its broadcast mode and the edges of its launch
+geometry, the top of its lazy range, the key inner product's two
+components in one launch), and the fused step, the train step, the
 hoisted rotations in both key forms, the BFV steps and rotations and the
 deep polynomial against the plain path, keygen, encryption and
 decryption at N=32768, the negacyclic monomial multiply (both modes), the
@@ -375,6 +377,187 @@ def test_train_step_and_rotate_many_match_plain_path(card):
                                                       True, ct.scale)))
         for i in range(len(vals)):
             assert abs(out[i] - padded[i + s]) < 1e-4
+
+
+# (lead, Ga, G, K, J, Ja, N, Nw, pre-scale): every form of K3's callers and
+# its edges: K 1-72, J 1-28, Ja in {1, J}, Nw in {1, N}, Ga in {1, G} up to
+# G = 16, one row, N from 2 to 65536 (rows shorter than a tile, N not a
+# power of two, odd N: one coefficient a unit)
+CONTRACT_CASES = [
+    ((1,), 1, 1, 1, 1, 1, 2, 1, False),
+    ((3,), 3, 3, 2, 4, 1, 8192, 1, True),          # mod-up
+    ((1,), 1, 2, 3, 4, 4, 8192, 8192, False),      # both key components, one row
+    ((4,), 1, 2, 3, 4, 4, 4096, 4096, False),      # both key components
+    ((2,), 1, 16, 3, 4, 4, 2048, 2048, False),     # shared digits, 16 keys
+    ((2,), 16, 16, 2, 3, 3, 1024, 1024, False),    # hoisted keys
+    ((1,), 1, 1, 24, 28, 1, 4096, 1, True),        # _dot_mod_128, I = 24, O = 28
+    ((2, 2), 1, 1, 28, 24, 1, 512, 1, False),
+    ((2,), 1, 1, 8, 28, 28, 1024, 1024, False),    # Ja = J = 28
+    ((2,), 2, 2, 7, 3, 3, 65536, 65536, False),
+    ((1,), 1, 1, 3, 4, 1, 65536, 1, True),
+    ((5,), 1, 3, 2, 4, 1, 16, 1, True),            # one input pre-scaled for each group
+    ((3,), 1, 1, 2, 3, 1, 6, 1, False),
+    ((2,), 2, 2, 2, 3, 3, 7, 7, False),
+    ((1,), 1, 1, 40, 1, 1, 32768, 1, False),
+    ((2,), 1, 4, 5, 6, 6, 8, 1, False),            # group M with unit weights, short rows
+    ((2,), 2, 2, 3, 4, 4, 256, 256, True),         # a pre-scale with Ja = J
+]
+
+
+def _contract_consts(mods, device):
+    from gemini_seal_tpu_torch.modulus import Modulus
+
+    return tuple(to_tensor(np.array(v, dtype=np.uint64), device) for v in (
+        mods, [Modulus(q).const_ratio[0] for q in mods], [Modulus(q).const_ratio[1] for q in mods]))
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES)
+def test_contract_kernel_every_form(card, case):
+    lead, Ga, G, K, J, Ja, n, Nw, pre = case
+    rng = np.random.default_rng(sum(lead) + G * 100 + K * 10 + J + n)
+    mods = get_primes(1024, 60, J) if J <= 20 else get_primes(1024, 59, J)
+    p, r0, r1 = _contract_consts(mods, card)
+    hi = np.array(mods, dtype=np.uint64)
+    a = rng.integers(0, 1 << 62, size=lead + (Ga, K, Ja, n), dtype=np.uint64)
+    if Ja > 1:
+        a %= 4 * hi.reshape(J, 1)       # lazy digits [0, 4p)
+    w = rng.integers(0, 1 << 62, size=(G, K, J, Nw), dtype=np.uint64) % hi.reshape(J, 1)
+    prescale = None
+    if pre:
+        qs = get_primes(1024, 50, G * K)
+        prescale = (to_tensor(rng.integers(0, 1 << 50, size=(G, K), dtype=np.uint64), card),
+                    *(t.reshape(G, K) for t in _contract_consts(qs, card)))
+    ta, tw = to_tensor(a, card), to_tensor(w, card)
+    before = cuda.LAUNCHES.copy()
+    got, want = _both(contract_mulmod_128, ta, tw, p, r0, r1, prescale=prescale)
+    assert got.shape == lead + (G, J, n) and torch.equal(got, want)
+    assert cuda.LAUNCHES["contract"] - before["contract"] == 1
+    broadcast = Ga == 1 and G > 1
+    assert cuda.LAUNCHES["contract:broadcast"] - before["contract:broadcast"] == int(broadcast)
+
+
+def test_contract_kernel_unaligned_input(card):
+    """An input that starts 8 bytes past a 16-byte boundary takes one
+    coefficient a unit."""
+    rng = np.random.default_rng(5)
+    mods = get_primes(1024, 50, 3)
+    p, r0, r1 = _contract_consts(mods, card)
+    flat = to_tensor(rng.integers(0, 1 << 50, size=2 * 4 * 3 * 1024 + 1, dtype=np.uint64), card)
+    a = flat[1:].reshape(2, 1, 4, 3, 1024)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 8
+    w = to_tensor(rng.integers(0, 1 << 50, size=(2, 4, 3, 1024), dtype=np.uint64), card)
+    got, want = _both(contract_mulmod_128, a, w, p, r0, r1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lead,G,K,J,n,shoup", [
+    ((128,), 3, 1, 4, 8192, True),      # the fused step's mod-up: several waves
+    ((1,), 1, 3, 15, 4096, False),      # the refresh's base conversion at batch 1
+    ((128,), 4, 2, 2, 4096, True),      # a Shoup call with K > 1 terms
+])
+def test_contract_kernel_both_prescales(card, lead, G, K, J, n, shoup):
+    """The Shoup pre-scale (constants made once per CTA, in calls of several
+    waves) and the Barrett mul_mod (smaller calls) each equal the plain
+    version, with pre-scale factors s drawn over all 64 bits (most above q)
+    and planted at q - 1, q and 2^64 - 1."""
+    from gemini_seal_tpu_torch.ops.modops import contract_geometry
+
+    rng = np.random.default_rng(G * 1000 + K * 100 + J)
+    mods = get_primes(1024, 59, J)
+    p, r0, r1 = _contract_consts(mods, card)
+    qs = get_primes(1024, 50, G * K)
+    s = rng.integers(0, 1 << 64, size=G * K, dtype=np.uint64, endpoint=False)
+    s[:3] = [qs[0] - 1, qs[min(1, G * K - 1)], (1 << 64) - 1]
+    prescale = (to_tensor(s.reshape(G, K), card),
+                *(t.reshape(G, K) for t in _contract_consts(qs, card)))
+    a = to_tensor(rng.integers(0, 1 << 64, size=lead + (G, K, 1, n), dtype=np.uint64), card)
+    w = to_tensor(rng.integers(0, 1 << 59, size=(G, K, J, 1), dtype=np.uint64)
+                  % np.array(mods, dtype=np.uint64).reshape(J, 1), card)
+    geo = contract_geometry(int(np.prod(lead)), G, G, K, J, 1, n, 1, True, 2)
+    assert geo["shoup"] == int(shoup)
+    got, want = _both(contract_mulmod_128, a, w, p, r0, r1, prescale=prescale)
+    assert torch.equal(got, want)
+
+
+def test_contract_kernel_top_of_lazy_range(card):
+    """Inputs at 4p - 1 and weights at p - 1 at the largest K that
+    KeySwitchPlan.lazy_digits admits for the larger of two 60-bit primes,
+    each output limb at both ends of its row."""
+    mods = get_primes(1024, 60, 2)
+    K = ((1 << 128) - 1) // (4 * max(mods) ** 2)
+    p, r0, r1 = _contract_consts(mods, card)
+    hi = np.array(mods, dtype=np.uint64).reshape(2, 1)
+    for n, Ja in ((4096, 2), (2, 1)):
+        a = np.broadcast_to(4 * hi[:Ja] - 1, (3, 1, K, Ja, n)).copy()
+        w = np.broadcast_to(hi - 1, (2, K, 2, n)).copy()
+        got, want = _both(contract_mulmod_128, to_tensor(a, card), to_tensor(w, card), p, r0, r1)
+        assert torch.equal(got, want)
+        for j, q in enumerate(mods):
+            x = 4 * (mods[j] if Ja > 1 else mods[0]) - 1
+            assert int(got[0, 0, j, 0]) == K * x * (q - 1) % q
+
+
+def test_contract_kernel_m_tilde_modulus(card):
+    """The 2^32 output modulus of fastbconv_m_tilde (r0 = 0, r1 = 2^32)."""
+    rng = np.random.default_rng(9)
+    ib = get_primes(1024, 50, 5)
+    p = to_tensor(np.array([1 << 32], dtype=np.uint64), card)
+    r0 = to_tensor(np.array([0], dtype=np.uint64), card)
+    r1 = to_tensor(np.array([1 << 32], dtype=np.uint64), card)
+    a = to_tensor(rng.integers(0, min(ib), size=(8, 1, 5, 1, 8192), dtype=np.uint64), card)
+    w = to_tensor(rng.integers(0, 1 << 32, size=(1, 5, 1, 1), dtype=np.uint64), card)
+    qs = _contract_consts(ib, card)
+    pre = (to_tensor(rng.integers(0, min(ib), size=(1, 5), dtype=np.uint64), card),
+           *(t.reshape(1, 5) for t in qs))
+    got, want = _both(contract_mulmod_128, a, w, p, r0, r1, prescale=pre)
+    assert torch.equal(got, want)
+
+
+def test_contract_kernel_key_pair_is_one_launch(card):
+    """The key inner product's two components as one broadcast launch equal
+    two single-component calls; keyswitch_inner_product makes that one
+    launch (and the fused step four contract launches in all)."""
+    from gemini_seal_tpu_torch.ops.keyswitch import (KeySwitchPlan, compute_modup_digits,
+                                                     keyswitch_inner_product)
+
+    n = 8192
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, [50, 40, 40, 50]))
+    parms.set_random_seed(tuple(range(71, 79)))
+    ctx = T.SealContext(parms, sec_level=T.SecLevelType.none)
+    kg = T.KeyGenerator(ctx)
+    rk = kg.relin_keys().stacked(2)
+    plan = KeySwitchPlan(ctx, ctx.first_parms_id)
+    rng = np.random.default_rng(12)
+    mods = [m.value for m in ctx.first_context_data().parms.coeff_modulus]
+    target = _res(rng, mods[:plan.n_ct_rns], (4,), n)
+    digits = compute_modup_digits(to_tensor(target, card), plan, True)
+    ext = plan.ext_limbs
+    nb = digits.shape[-3]
+    key2 = rk[:nb].transpose(0, 1).index_select(-2, plan.ext_key_indices)
+    a = digits.reshape(4, 1, nb, plan.n_ext, n)
+    consts = (ext.p.reshape(-1), ext.ratio0.reshape(-1), ext.ratio1.reshape(-1))
+    before = cuda.LAUNCHES.copy()
+    both = contract_mulmod_128(a, key2, *consts)
+    assert cuda.LAUNCHES["contract"] - before["contract"] == 1
+    assert cuda.LAUNCHES["contract:broadcast"] - before["contract:broadcast"] == 1
+    for l in range(2):
+        one = contract_mulmod_128(a, key2[l:l + 1].contiguous(), *consts)
+        assert torch.equal(both[:, l], one[:, 0])
+    assert cuda.LAUNCHES["contract:broadcast"] - before["contract:broadcast"] == 1
+    before = cuda.LAUNCHES.copy()
+    raw = keyswitch_inner_product(digits, rk, plan, True, raw=True)
+    assert cuda.LAUNCHES["contract"] - before["contract"] == 1
+    with plain_versions():
+        want = keyswitch_inner_product(digits, rk, plan, True, raw=True)
+    for g, w in zip(raw, want):
+        assert torch.equal(g, w)
+    assert torch.equal(raw[0], both[:, 0]) and torch.equal(raw[1], both[:, 1])
+    x = to_tensor(np.stack([target] * 2, 1), card)     # [4, 2, n_ct, N]
+    before = cuda.LAUNCHES.copy()
+    T.build_ckks_mul_relin_rescale(ctx, fused=True)(x, x, rk)
+    assert cuda.LAUNCHES["contract"] - before["contract"] == 4
 
 
 # --- the BFV slice: K6 behz, K7 scale_round, K4 submul, and K1-K3 at the
