@@ -273,6 +273,9 @@ EX8 = {"sha256": "27c348c9e4ef004a148848d73553eb192a24255696a54f5bfd2c94edb13bde
        "decodes": [0.01, 0.05, 0.13, 0.25]}
 # ... and the kernels each BFV path's encryption and decryption must launch
 PHASE_KERNELS = {"encode_encrypt": ("scale_round",), "decrypt_decode": ("scale_round",)}
+# kernels whose wrapper names its mode first: the kernels line gives each
+# mode's launches and times beside the kernel's (``by_mode``)
+MODE_ROWS = ("behz", "scale_round")
 
 
 def emit(obj) -> None:
@@ -296,6 +299,11 @@ RESOURCE_KERNELS = {
     # vec: coefficients a column unit; w_has_n: per-coefficient weights (keys);
     # staged: the inputs staged in shared memory (else read directly)
     "contract": (r"contract_kernelILi(\d)ELb(\d)ELb(\d)E", ("vec", "w_has_n", "staged")),
+    # mode: sm_mrq / sk_tail; vec: coefficients a column unit; shoup: Shoup
+    # constants a CTA (else the Barrett mul_mod)
+    "behz": (r"(sm_mrq|sk_tail)_kernelILi(\d)ELb(\d)E", ("mode", "vec", "shoup")),
+    # mode: plain (sub: 0 plain_add, 1 plain_sub) / t_gamma
+    "scale_round": (r"(plain|t_gamma)_kernelILi(\d)E(?:Lb(\d)E)?", ("mode", "vec", "sub")),
 }
 
 
@@ -310,7 +318,7 @@ def kernel_resources(cuda, kernel: str, lib_path: str) -> dict:
     for line in cuobjdump(cuda, "-res-usage", lib_path).splitlines():
         m = re.search(pattern, line)
         if m:
-            key = ",".join(f"{n}={v}" for n, v in zip(names, m.groups()))
+            key = ",".join(f"{n}={v}" for n, v in zip(names, m.groups()) if v is not None)
         elif key and "REG:" in line:
             res[key] = {k: int(v) for k, v in re.findall(r"(REG|STACK):(\d+)", line)}
             key = None
@@ -351,6 +359,20 @@ def _lane_ops(ins):
     return [i for i in ins if not i[1].startswith(("U", "NOP", "BRA", "EXIT"))]
 
 
+def _loops(ins):
+    """(first, last) addresses of each backward branch's loop."""
+    import re
+
+    loops = []
+    for addr, op, target in ins:
+        if op.startswith("BRA"):
+            hexes = re.findall(r"0x[0-9a-f]+", target) if isinstance(target, str) else []
+            t = int(hexes[-1], 16) if hexes else target
+            if isinstance(t, int) and t <= addr:
+                loops.append((t, addr))
+    return loops
+
+
 def ntt_instructions_per_butterfly(cuda, lib_path: str) -> dict:
     """Static SASS instructions of the N=8192 ntt kernels (forward, inverse)
     over the butterflies a thread runs a row (13 stages x 4): the row loop
@@ -385,13 +407,7 @@ def contract_instructions(cuda, lib_path: str) -> dict:
         if not m:
             continue
         vec = int(m.group(1))
-        loops = []
-        for addr, op, target in ins:
-            if op.startswith("BRA"):
-                hexes = re.findall(r"0x[0-9a-f]+", target) if isinstance(target, str) else []
-                t = int(hexes[-1], 16) if hexes else target
-                if isinstance(t, int) and t <= addr:
-                    loops.append((t, addr))
+        loops = _loops(ins)
         spans = {lp: [i for i in ins if lp[0] <= i[0] <= lp[1]] for lp in loops}
         k_loops = [lp for lp, body in spans.items()
                    if any(i[1].startswith("IMAD.WIDE") for i in body)
@@ -410,6 +426,67 @@ def contract_instructions(cuda, lib_path: str) -> dict:
                                    - len(_lane_ops(spans[k_loop]))) / vec
         out[key] = entry
     return out
+
+
+def rns_instructions(cuda, kernel: str, lib_path: str) -> dict:
+    """Static SASS instructions of each ``behz`` and ``scale_round`` kernel
+    instantiation an output, and whether it divides.  The innermost loop
+    that stores to global memory (STG) is the per-output loop (K6 the walk
+    over one row's limbs, K7's plain modes the row loop, t_gamma the row
+    loop), none of them unrolled: per_output = its instructions / (its
+    stores x coefficients a unit).  outer_per_unit: the instructions of the
+    loop around it beyond it, a column unit (K6 one row's r or alpha, K7
+    plain one limb's inc).  divides: the function's MUFU.RCP (the start of
+    a 32- or 64-bit integer division) and CALL instructions (a division
+    subroutine); 0 means no index is divided anywhere in the kernel."""
+    import re
+
+    out = {}
+    pattern, names = RESOURCE_KERNELS[kernel]
+    for name, ins in _sass_functions(cuobjdump(cuda, "-sass", lib_path)).items():
+        m = re.search(pattern, name)
+        if not m:
+            continue
+        key = ",".join(f"{n}={v}" for n, v in zip(names, m.groups()) if v is not None)
+        vec = int(m.group(2))
+        loops = _loops(ins)
+        spans = {lp: [i for i in ins if lp[0] <= i[0] <= lp[1]] for lp in loops}
+        entry = {"instructions": len(_lane_ops(ins)),
+                 "divides": sum(1 for i in ins if i[1].startswith(("MUFU.RCP", "CALL")))}
+        storing = [lp for lp, body in spans.items() if any(i[1].startswith("STG") for i in body)]
+        if not storing:
+            entry["error"] = "no storing loop found"
+            out[key] = entry
+            continue
+        inner = min(storing, key=lambda lp: lp[1] - lp[0])
+        body = _lane_ops(spans[inner])
+        stores = sum(1 for i in spans[inner] if i[1].startswith("STG"))
+        entry["per_output"] = len(body) / (stores * vec)
+        outer = [lp for lp in loops if lp[0] <= inner[0] and lp[1] >= inner[1] and lp != inner]
+        if outer:
+            around = min(outer, key=lambda lp: lp[1] - lp[0])
+            entry["outer_per_unit"] = len(_lane_ops(spans[around])) - len(body)
+        out[key] = entry
+    return out
+
+
+def launch_floor(torch, cuda, lib_path: str, reps: int) -> dict:
+    """Device ms of an empty kernel (scale_round.cu's gst_empty_launch) at a
+    few grids, timed as the kernels are (``event_ms``): the least a launch
+    of K7-K10's small calls can take."""
+    import ctypes
+
+    fn = ctypes.CDLL(lib_path).gst_empty_launch
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(blocks, threads):
+        rc = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel failed to launch: cudaError {rc}")
+
+    return {f"{b}x{t}": event_ms(torch, lambda: launch(b, t), reps)
+            for b, t in ((1, 32), (256, 128), (4096, 256))}
 
 
 def nvidia_smi_line() -> str:
@@ -735,23 +812,26 @@ def work(kernel, fn_name, args, kwargs, result):
         if kwargs.get("prescale") is not None:  # once per needed input element and group
             ops += a.numel() // K * live_k * IMAD_MULMOD * (G if a.shape[-4] == 1 else 1)
     elif kernel == "behz":
-        # sm_mrq: low-word multiply for r, the 128-bit q*r, barrett_reduce_128
-        # and a mul_mod per output; sk_tail: alpha once per coefficient and
-        # one mul_mod per output (the selected branch)
+        # sm_mrq: the low-word multiply for r once per row and coefficient,
+        # then per output two Shoup products (x_j * m_tilde^-1 + r * (q *
+        # m_tilde^-1)); sk_tail: alpha's Shoup product once per row and
+        # coefficient and one Shoup product per output (the selected branch)
         out = outs[0]
+        coeffs = out.numel() // out.shape[-2]
         if args[0] == "sm_mrq":
-            ops = out.numel() * (3 + IMAD_MAC + IMAD_BARRETT128 + IMAD_MULMOD)
+            ops = coeffs * 3 + out.numel() * 2 * IMAD_SHOUP
         else:
-            ops = out.numel() * IMAD_MULMOD + (out.numel() // out.shape[-2]) * IMAD_MULMOD
+            ops = (out.numel() + coeffs) * IMAD_SHOUP
     elif kernel == "scale_round":
         # plain modes: the fix once per coefficient (m * (q mod t) and the
-        # divmod quotient), then Delta * m and barrett_reduce_128 per output;
-        # t_gamma: three mul_mods and two barrett_reduce_64 per output
+        # divmod quotient), Delta * m and barrett_reduce_128 once per limb and
+        # coefficient, only an add per output; t_gamma: three Shoup products
+        # and two barrett_reduce_64 per output
         out = outs[0]
         if args[0] == "t_gamma":
-            ops = out.numel() * (3 * IMAD_MULMOD + 2 * IMAD_BARRETT64)
+            ops = out.numel() * (3 * IMAD_SHOUP + 2 * IMAD_BARRETT64)
         else:
-            ops = (out.shape[-1] + out.numel()) * (IMAD_MAC + IMAD_BARRETT128)
+            ops = out.shape[-1] * (1 + out.shape[-2]) * (IMAD_MAC + IMAD_BARRETT128)
     elif kernel == "mod_raise":
         ops = outs[0].numel() * IMAD_BARRETT64  # one Barrett-64 per output
     elif kernel == "negacyclic":
@@ -1060,7 +1140,14 @@ def main(argv=None) -> int:
               "ntt_sass_instructions_per_butterfly": ntt_instructions_per_butterfly(
                   cuda, report["ntt"]["path"]),
               "contract_sass_instructions": contract_instructions(
-                  cuda, report["contract"]["path"])})
+                  cuda, report["contract"]["path"]),
+              "behz_sass_instructions": rns_instructions(cuda, "behz", report["behz"]["path"]),
+              "scale_round_sass_instructions": rns_instructions(
+                  cuda, "scale_round", report["scale_round"]["path"])})
+        # an empty kernel at K7's grid (256 x 128: one ciphertext's c0 at
+        # N=8192) and a large call's, timed as the kernels are
+        emit({"phase": "launch_floor", "card": card, "kernel": "empty_kernel",
+              "ms": launch_floor(torch, cuda, report["scale_round"]["path"], 20)})
         if not imma:
             raise AssertionError("ntt_mxu's SASS has no IMMA (int8 tensor-core) instruction")
 
@@ -1092,6 +1179,12 @@ def main(argv=None) -> int:
         sync()
         row = rows.setdefault(label, {"checked": [], "step_calls": [], "by_path": {},
                                       "max_abs_err": 0, "tolerance": 0})
+        # behz and scale_round: each mode's calls and times on their own too
+        mode = cargs[0] if kernel in MODE_ROWS else None
+        if mode is not None:
+            by_mode = row.setdefault("by_mode", {}).setdefault(
+                mode, {"launches_by_path": {}, "by_path": {}})
+            by_mode["launches_by_path"][path] = by_mode["launches_by_path"].get(path, 0) + 1
         key = (label, fn.__name__, signature(cargs, ckw))
         plain_s = None
         if key not in seen:
@@ -1171,20 +1264,22 @@ def main(argv=None) -> int:
                 timed_once[key] = (ms, plain_ms, lib_ms)
         bound, bound_by = bound_of(nbytes, ops, macs)
         row["step_calls"].append({"path": path, "fn": fn.__name__, "signature": repr(key[2]),
-                                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                                  "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
-                                  "imads": ops, "int8_macs": macs})
-        bp = row["by_path"].setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                              "bound_ms": 0.0, "bytes": 0, "imads": 0,
-                                              "int8_macs": 0})
-        if not rehearsal:
-            bp["ms"] += ms
-            bp["plain_ms"] += plain_ms
-            bp["library_ms"] += lib_ms or 0.0
-        bp["bound_ms"] += bound
-        bp["bytes"] += nbytes
-        bp["imads"] += ops
-        bp["int8_macs"] += macs
+                                  "mode": mode, "ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+                                  "bytes": nbytes, "imads": ops, "int8_macs": macs})
+        for acc in (row["by_path"],) + ((by_mode["by_path"],) if mode is not None else ()):
+            bp = acc.setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                       "bound_ms": 0.0, "bytes": 0, "imads": 0, "int8_macs": 0,
+                                       "calls": 0})
+            if not rehearsal:
+                bp["ms"] += ms
+                bp["plain_ms"] += plain_ms
+                bp["library_ms"] += lib_ms or 0.0
+            bp["bound_ms"] += bound
+            bp["bytes"] += nbytes
+            bp["imads"] += ops
+            bp["int8_macs"] += macs
+            bp["calls"] += 1
 
     recorder = Recorder(check_call)
 
@@ -2709,12 +2804,39 @@ def main(argv=None) -> int:
         "ntt_mxu": "the digit-pair products only: torch._int_mm (cuBLASLt int8), one call per "
                    "limb and shift (no PyTorch call splits, recombines or reduces mod p)",
     }
+    def totals(bp):
+        return {f: sum(p[f] for p in bp.values())
+                for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "imads",
+                          "int8_macs")}
+
+    def mode_rows(label, row):
+        """Each mode's launches (all phases of each path; their sum is the
+        kernel's count where ``launches_match``), and its timed calls' ms,
+        plain ms and bound, summed and per path."""
+        out = {}
+        for mode, m in row.get("by_mode", {}).items():
+            total = totals(m["by_path"])
+            out[mode] = {
+                "launches": sum(m["launches_by_path"].values()),
+                "launches_by_path": m["launches_by_path"],
+                "ms": total["ms"] if not rehearsal and m["by_path"] else None,
+                "plain_ms": total["plain_ms"] if not rehearsal and m["by_path"] else None,
+                "bound_ms": total["bound_ms"],
+                "bound_by": bound_of(total["bytes"], total["imads"], 0)[1],
+                "per_step_by_path": {p: {f: v[f] if f in ("bound_ms", "calls") or not rehearsal
+                                         else None for f in ("ms", "plain_ms", "bound_ms",
+                                                             "calls")}
+                                     for p, v in m["by_path"].items()}}
+        if out:
+            counted = {p: sum(m["launches_by_path"].get(p, 0) for m in out.values())
+                       for p in paths}
+            out["launches_match"] = all(counted[p] == paths[p]["launches"][label] for p in paths)
+        return out
+
     kernels = []
     for label, row in rows.items():
         bp = row["by_path"]
-        total = {f: sum(p[f] for p in bp.values())
-                 for f in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "imads",
-                           "int8_macs")}
+        total = totals(bp)
         has_lib = label.startswith(("galois", "negacyclic")) or label in (
             "mod_raise", "infty_norm", "elementwise:reduce64", "ntt_mxu")
         fields = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if has_lib else ())
@@ -2741,6 +2863,7 @@ def main(argv=None) -> int:
             "per_step_by_path": {p: {f: v[f] if f == "bound_ms" or not rehearsal else None
                                      for f in fields}
                                  for p, v in bp.items()},
+            **({"by_mode": mode_rows(label, row)} if label in MODE_ROWS else {}),
         })
     emit({"kernels": kernels})
     if rehearsal:

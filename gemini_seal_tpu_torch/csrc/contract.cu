@@ -143,11 +143,9 @@ __global__ void __launch_bounds__(256) contract_kernel(const ContractParams p) {
         const int gk = z * K + k;
         const u64 q = p.sq[gk], q0 = p.sr0[gk], q1 = p.sr1[gk];
         const u64 sv = barrett_reduce_128(0, p.s[gk], q, q0, q1);
-        u64 sw = divmod_128_quotient(sv, 0, q, q0, q1);
-        if (0 - sw * q >= q) ++sw;  // the remainder sv * 2^64 - sw * q must be below q
         ps[k] = sv;
         ps[K + k] = q;
-        ps[2 * K + k] = sw;
+        ps[2 * K + k] = shoup_constant(sv, q, q0, q1);
     }
     u64* stage = ps + ((3 * J + nw + nps) & 1) + nps;  // 16-byte aligned
     const int slices = blockDim.x >> p.log_tp;

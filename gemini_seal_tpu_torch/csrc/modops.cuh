@@ -70,6 +70,16 @@ __device__ __forceinline__ u64 mul_mod_shoup(u64 x, u64 w, u64 w_shoup, u64 p) {
     return r >= p ? r - p : r;
 }
 
+// floor(w * 2^64 / p) for w < p: the Barrett quotient of w:0, then one
+// correction, so that the remainder w * 2^64 - q * p (mod 2^64) is below p.
+// With it mul_mod_shoup(x, w, ., p) is x * w mod p for every 64-bit x
+// (p < 2^63): the canonical value of mul_mod.
+__device__ __forceinline__ u64 shoup_constant(u64 w, u64 p, u64 r0, u64 r1) {
+    u64 q = divmod_128_quotient(w, 0, p, r0, r1);
+    if (0 - q * p >= p) ++q;
+    return q;
+}
+
 __device__ __forceinline__ u64 add_mod(u64 a, u64 b, u64 p) {
     u64 s = a + b;
     return s >= p ? s - p : s;
@@ -93,6 +103,28 @@ __device__ __forceinline__ u64 reduce_twice(u64 x, u64 p) {
 __device__ __forceinline__ void mac128(u64 &hi, u64 &lo, u64 a, u64 b) {
     asm("mad.lo.cc.u64 %0, %2, %3, %0;\n\tmadc.hi.u64 %1, %2, %3, %1;"
         : "+l"(lo), "+l"(hi) : "l"(a), "l"(b));
+}
+
+// VEC adjacent u64 coefficients, one 16-byte access when VEC = 2 (the
+// address then 16-byte aligned: the host checks)
+template <int VEC>
+__device__ __forceinline__ void load_cols(u64 (&v)[VEC], const u64* p) {
+    if constexpr (VEC == 2) {
+        const ulonglong2 t = *reinterpret_cast<const ulonglong2*>(p);
+        v[0] = t.x;
+        v[1] = t.y;
+    } else {
+        v[0] = *p;
+    }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_cols(u64* p, const u64 (&v)[VEC]) {
+    if constexpr (VEC == 2) {
+        *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(v[0], v[1]);
+    } else {
+        *p = v[0];
+    }
 }
 
 static inline unsigned grid_for(long long total, int threads) {

@@ -32,11 +32,11 @@ import torch
 from ..utils import numth
 from ..utils.rns import BaseConverter, RNSTool
 from . import cuda
-from .backend import is_cuda, to_tensor
+from .backend import is_cuda, to_numpy, to_tensor
 from .dyadic import LimbConstants
-from .modops import (add_mod, barrett_reduce_64, barrett_reduce_128, contract_mulmod_128,
-                     divmod_128, mul64_wide, mul_mod, rns_elementwise, shr, sub_mod, uge,
-                     ult)
+from .modops import (_FILL, _GRID_YZ, _pow2_ceil, add_mod, barrett_reduce_64,
+                     barrett_reduce_128, contract_mulmod_128, divmod_128, mul64_wide, mul_mod,
+                     rns_elementwise, shr, sub_mod, uge, ult)
 from .ntt import NTTTables, build_ntt_tables, ntt_forward, ntt_inverse
 
 __all__ = [
@@ -60,6 +60,9 @@ __all__ = [
     "behz_plain",
     "scale_round",
     "scale_round_plain",
+    "rns_geometry",
+    "shoup_operands",
+    "check_shoup_operands",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -189,6 +192,90 @@ def fast_convert_array(x, conv: DeviceBaseConverter):
 
 
 # --------------------------------------------------------------------------
+# the launch geometry and the Shoup multipliers of `behz` and `scale_round`
+# --------------------------------------------------------------------------
+
+def rns_geometry(R: int, L: int, N: int, vec: int, share_rows: bool = False) -> dict:
+    """The launch geometry of one ``behz`` or ``scale_round`` call, by shape.
+
+    A thread owns one column unit (``vec`` adjacent coefficients, at most
+    the ``vec`` that the pointers allow) of the rows y, y + grid_y, ... and
+    computes its output limbs z, z + grid_z, ... (``tiles`` x ``threads``
+    units on the grid's x axis).  A row's work is its own in K6 and in
+    t_gamma, so every row gets its own y (up to the grid's limit); K7's
+    plain modes share a coefficient's rounding fix over the rows and limbs
+    (``share_rows``), so a thread keeps ceil(R / grid_y) rows, with grid_y
+    as large as it takes to fill the card.  A call whose units of two
+    coefficients fill the card (``fills``) takes CTAs of 256 threads and
+    one limb group.  A smaller one (the per-op API's one to three
+    ciphertexts, an encryption or decryption) is bound by its latency: it
+    takes one coefficient a thread, spreads its limbs over grid_z and takes
+    CTAs of 128 threads (port_tools/rns_kernels.py timed these picks against
+    two coefficients a thread and CTAs of 64 and 256).  ``shoup``: the call
+    has more than half a wave of threads, where K6 multiplies by Shoup
+    constants that each CTA computes once; a smaller call takes the Barrett
+    mul_mod, which needs no set-up and no barrier before its first output
+    (port_tools/rns_kernels.py --shoup times the two forms: the Barrett
+    form is the faster on the per-op calls at N = 4096, a quarter of a wave
+    or less, and the Shoup form at N = 8192, 0.6-0.75 of a wave).
+    """
+    def rows(units):
+        return min(R, _GRID_YZ, -(-_FILL // units) if share_rows else R)
+
+    fills = (N // vec) * rows(N // vec) >= _FILL
+    if not fills:
+        vec = 1
+    units = N // vec
+    grid_y = rows(units)
+    grid_z = 1 if fills else min(L, _GRID_YZ, -(-_FILL // (units * grid_y)))
+    threads = min(256 if fills else 128, max(32, _pow2_ceil(units)))
+    tiles = -(-units // threads)
+    return {"vec": vec, "threads": threads, "tiles": tiles, "grid_y": grid_y, "grid_z": grid_z,
+            "fills": fills, "shoup": int(2 * tiles * threads * grid_y * grid_z > _FILL)}
+
+
+def _vec(N, *tensors) -> int:
+    """2 coefficients a unit (16-byte accesses) when N and every pointer allow."""
+    return 2 if N % 2 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
+
+
+def shoup_operands(mode: str, consts) -> list:
+    """The (multiplier, modulus) pairs of a packed constant array that the
+    kernel multiplies by as Shoup products (each CTA computes their Shoup
+    constants): sm_mrq m_tilde^-1 mod p_j and q * m_tilde^-1 mod p_j (the
+    product that each CTA forms by mul_mod); sk_tail prod_B and q_l - prod_B
+    mod q_l (the u64 difference, as the plain version forms it) and B^-1 mod
+    m_sk; t_gamma -q^-1 mod t, -q^-1 mod gamma and gamma^-1 mod t.  The
+    plain modes of scale_round have none."""
+    k = [int(v) for v in np.asarray(to_numpy(consts), dtype=np.uint64)]
+    if mode == "sm_mrq":
+        bsk = (len(k) - 1) // 5
+        return ([(k[4 * bsk + j], k[j]) for j in range(bsk)]
+                + [(k[3 * bsk + j] * k[4 * bsk + j] % k[j], k[j]) for j in range(bsk)])
+    if mode == "sk_tail":
+        L = (len(k) - 4) // 4
+        m_sk = k[4 * L]
+        return ([(k[3 * L + l], k[l]) for l in range(L)]
+                + [((k[l] - k[3 * L + l]) % (1 << 64), k[l]) for l in range(L)]
+                + [(k[4 * L + 3], m_sk)])
+    if mode == "t_gamma":
+        t, g = k[0], k[3]
+        return [(k[6], t), (k[7], g), (k[8], t)]
+    if mode in ("plain_add", "plain_sub"):
+        return []
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def check_shoup_operands(mode: str, consts) -> None:
+    """Every Shoup multiplier of ``consts`` below its modulus (for sk_tail:
+    prod_B mod q_l is not 0), which the kernel's one-correction Shoup
+    product assumes."""
+    bad = [(w, p) for w, p in shoup_operands(mode, consts) if not w < p]
+    if bad:
+        raise ValueError(f"{mode}: multipliers not below their moduli: {bad}")
+
+
+# --------------------------------------------------------------------------
 # kernel `behz`: sm_mrq and the Shenoy-Kumaresan tail
 # --------------------------------------------------------------------------
 
@@ -262,8 +349,10 @@ def behz(mode: str, x, consts, aux=None):
     out = torch.empty(x.shape[:-2] + (I - 1, N), dtype=torch.int64, device=x.device)
     if out.numel() == 0:
         return out
+    geo = rns_geometry(R, I - 1, N, _vec(N, *[t for t in (out, x, aux) if t is not None]))
     cuda.call("behz", cuda.ptr(out), cuda.ptr(x), cuda.ptr(aux), cuda.ptr(consts),
-              R, I, A, N, BEHZ_MODES[mode])
+              R, I, A, N, BEHZ_MODES[mode], geo["vec"], geo["threads"], geo["grid_y"],
+              geo["grid_z"], geo["shoup"])
     return out
 
 
@@ -335,8 +424,15 @@ def scale_round(mode: str, x, consts, plain=None):
             cuda.check(t, f"scale_round {what}")
     if out.numel() == 0:
         return out
+    R = x.numel() // (L * N)
+    vec = _vec(N, *[t for t in (out, x, plain) if t is not None])
+    if mode == "t_gamma":
+        geo = rns_geometry(R, 1, N, vec)
+    else:
+        geo = rns_geometry(R, L, N, vec, share_rows=True)
     cuda.call("scale_round", cuda.ptr(out), cuda.ptr(x), cuda.ptr(plain), cuda.ptr(consts),
-              x.numel() // (L * N), L, N, SCALE_ROUND_MODES[mode])
+              R, L, N, SCALE_ROUND_MODES[mode], geo["vec"], geo["threads"], geo["grid_y"],
+              geo["grid_z"])
     return out
 
 
@@ -401,6 +497,8 @@ class DeviceRNSTool:
             [moduli, [m.const_ratio[0] for m in q.base], [m.const_ratio[1] for m in q.base],
              host.prod_B_mod_q, host.m_sk.value, host.m_sk.const_ratio[0],
              host.m_sk.const_ratio[1], host.inv_prod_B_mod_m_sk], device)
+        check_shoup_operands("sm_mrq", self.sm_mrq_consts)
+        check_shoup_operands("sk_tail", self.sk_tail_consts)
 
         # decrypt_scale_and_round's conversion with |gamma t|_qi folded in
         self.t_gamma_conv = DeviceBaseConverter.from_host(
@@ -409,6 +507,7 @@ class DeviceRNSTool:
         self.t_gamma_consts = _pack(
             [t.value, t.const_ratio[0], t.const_ratio[1], g.value, g.const_ratio[0],
              g.const_ratio[1], host.neg_inv_q_mod_t_gamma, host.inv_gamma_mod_t], device)
+        check_shoup_operands("t_gamma", self.t_gamma_consts)
 
 
 # --------------------------------------------------------------------------

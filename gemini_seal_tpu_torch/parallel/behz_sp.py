@@ -37,7 +37,7 @@ from ..ops.dyadic import LimbConstants
 from ..ops.keyswitch import KeySwitchPlan
 from ..ops.modops import rns_elementwise
 from ..ops.ntt import NTTTables, ntt_forward_lazy, ntt_inverse
-from ..ops.rnsops import _dot_mod_128, _pack, _slice_tables, behz
+from ..ops.rnsops import _dot_mod_128, _pack, _slice_tables, behz, check_shoup_operands
 from .keyswitch_sp import plan_consts, switch_local
 from .mesh import limb_group
 
@@ -117,6 +117,8 @@ class _BehzConsts:
              [qmods[i].const_ratio[1] for i in range(qlo, qhi)],
              [host.prod_B_mod_q[i] for i in range(qlo, qhi)], m_sk, host.m_sk.const_ratio[0],
              host.m_sk.const_ratio[1], host.inv_prod_B_mod_m_sk], dev)
+        check_shoup_operands("sm_mrq", self.sm_mrq_consts)
+        check_shoup_operands("sk_tail", self.sk_tail_consts)
 
 
 def _behz_consts(cd, C: int, d: int) -> _BehzConsts:

@@ -20,10 +20,17 @@ Each RUN.log is the standard output of one ``python3 chip_smoke.py`` run
 - per path: the device ms a step of K1 (kernels named ``ntt_kernel``, and
   ``ntt_stage_kernel``, the large-ring stage launches of the kernel's
   earlier design, so that an older tree's run compares), K3
-  (``contract_kernel``) and K5 (``galois_kernel``) (``profile`` lines,
-  first turn);
+  (``contract_kernel``), K5 (``galois_kernel``) and K6 (``sm_mrq_kernel``
+  and ``sk_tail_kernel``) (``profile`` lines, first turn);
 - the four-step int8 NTT against K1 (``ntt_mxu`` lines): the MXU/K1 ratio
-  of NTTs/s both ways and the CUDA-event ms a transform of each.
+  of NTTs/s both ways and the CUDA-event ms a transform of each;
+- K6 ``behz`` per mode and path: the ms a step of the step's calls, their
+  count, and the bound and plain ms of the first run; K7 ``scale_round``
+  per path, mode and distinct call: its ms in each run, with the bound and
+  plain ms of the first run, and the sum over every call of the paths
+  (``kernel_check`` lines: their ``step_calls``, so that a run of a tree
+  without per-mode rows compares too); the launch floor of each run
+  (``launch_floor`` line).
 """
 
 import argparse
@@ -137,6 +144,54 @@ def main(argv=None) -> int:
             plain = sum(f.get("plain_ms") or 0 for f in first)
             print(f"| {path} | " + " | ".join(cells) + f" | {fmt(bound)} | {fmt(plain)} |")
 
+    # K6 per mode and K7 per call, from the kernel_check lines' timed calls
+    def calls_of(lines, kernel):
+        row = next((o for o in lines if o.get("phase") == "kernel_check"
+                    and o.get("kernel") == kernel), None)
+        out = {}
+        for c in row["step_calls"] if row else []:
+            mode = c.get("mode") or c["signature"].split("'")[1]
+            out.setdefault((c["path"], mode), []).append(c)
+        return out
+
+    k6 = [calls_of(lines, "behz") for _, lines in runs]
+    if any(k6):
+        print("\n**K6 behz by mode** (ms a step summed over the step's calls; calls a step)\n")
+        print("| path, mode | " + " | ".join(f"ms ({i + 1})" for i in range(len(runs)))
+              + " | calls | bound | plain |")
+        print("|---|" + "---|" * (len(runs) + 3))
+        for key in dict.fromkeys(k for d in k6 for k in d):
+            ms = [sum(c["ms"] or 0 for c in d[key]) if key in d else None for d in k6]
+            first = next(d[key] for d in k6 if key in d)
+            print(f"| {key[0]}, {key[1]} | " + " | ".join(fmt(v) for v in ms)
+                  + f" | {len(first)} | {fmt(sum(c['bound_ms'] for c in first))} | "
+                  f"{fmt(sum(c['plain_ms'] or 0 for c in first))} |")
+    k7 = [calls_of(lines, "scale_round") for _, lines in runs]
+    if any(k7):
+        print("\n**K7 scale_round by call** (ms a call; the distinct calls of each path)\n")
+        print("| path, mode, input | " + " | ".join(f"ms ({i + 1})" for i in range(len(runs)))
+              + " | bound | plain |")
+        print("|---|" + "---|" * (len(runs) + 2))
+        for key in dict.fromkeys(k for d in k7 for k in d):
+            sigs = dict.fromkeys(c["signature"] for d in k7 for c in d.get(key, []))
+            for sig in sigs:
+                ms = [next((c["ms"] for c in d.get(key, []) if c["signature"] == sig), None)
+                      for d in k7]
+                first = next(c for d in k7 for c in d.get(key, []) if c["signature"] == sig)
+                shape = sig.split("(", 2)[2].split(")")[0]
+                print(f"| {key[0]}, {key[1]}, ({shape}) | " + " | ".join(fmt(v) for v in ms)
+                      + f" | {fmt(first['bound_ms'])} | {fmt(first['plain_ms'])} |")
+        print("| all calls, summed | " + " | ".join(
+            fmt(sum(c["ms"] or 0 for cs in d.values() for c in cs)) for d in k7)
+            + f" | {fmt(sum(c['bound_ms'] for cs in k7[0].values() for c in cs))} | |")
+    floors = [next((o["ms"] for o in lines if o.get("phase") == "launch_floor"), None)
+              for _, lines in runs]
+    if any(floors):
+        print("\n| launch floor (empty kernel, ms) | " + " | ".join(
+            ", ".join(f"{g} {fmt(v)}" for g, v in f.items()) if f else "-" for f in floors)
+            + " |")
+        print("|---|" + "---|" * len(runs))
+
     # profiles
     prof = []
     for _, lines in runs:
@@ -147,7 +202,7 @@ def main(argv=None) -> int:
         prof.append(d)
     ppaths = list(dict.fromkeys(p for d in prof for p in d))
     print("\n| path (profile, ms a step) | "
-          + " | ".join(f"K1, K3, K5, all ({i + 1})" for i in range(len(runs))) + " |")
+          + " | ".join(f"K1, K3, K5, K6, all ({i + 1})" for i in range(len(runs))) + " |")
     print("|---|" + "---|" * len(runs))
     for path in ppaths:
         cells = []
@@ -162,7 +217,10 @@ def main(argv=None) -> int:
                      if "contract_kernel" in r["name"])
             k5 = sum(r["device_ms_per_step"] for r in o["by_kernel"]
                      if "galois_kernel" in r["name"])
-            cells.append(f"{fmt(k1)}, {fmt(k3)}, {fmt(k5)}, {fmt(o['device_ms_per_step'])}")
+            k6 = sum(r["device_ms_per_step"] for r in o["by_kernel"]
+                     if "sm_mrq_kernel" in r["name"] or "sk_tail_kernel" in r["name"])
+            cells.append(f"{fmt(k1)}, {fmt(k3)}, {fmt(k5)}, {fmt(k6)}, "
+                         f"{fmt(o['device_ms_per_step'])}")
         print(f"| {path} | " + " | ".join(cells) + " |")
 
     # the four-step int8 NTT against K1

@@ -639,6 +639,127 @@ def test_scale_round_kernel_t_gamma(bfv3):
     assert torch.equal(got, want)
 
 
+def _rows_of(tool, name):
+    return [int(v) for v in getattr(tool.host, name).values()]
+
+
+@pytest.mark.parametrize("lead,n,vec,shoup", [
+    ((128, 2), 8192, 2, 1),   # the BFV chain's step: two coefficients a unit, Shoup
+    ((4, 2), 8192, 1, 1),
+    ((1,), 4096, 1, 0),       # a one-row call: limbs over the grid, Barrett
+    ((3,), 4160, 1, 0),
+    ((2,), 4097, 1, 0),
+    ((70000,), 4, 1, 1),
+])
+def test_behz_kernel_sm_mrq_centring_and_geometry(bfv3, lead, n, vec, shoup):
+    """r at m_tilde/2 - 1, m_tilde/2 and m_tilde/2 + 1 (and 0, m_tilde - 1)
+    planted in the first row, in each form that rns_geometry picks: the
+    main path's shape, a smaller one, a one-row call, a coefficient count
+    that is not a multiple of the tile, an odd one (one coefficient a unit)
+    and more rows than the grid's y axis takes."""
+    from gemini_seal_tpu_torch.ops.rnsops import rns_geometry, sm_mrq
+
+    _, tool = bfv3
+    geo = rns_geometry(int(np.prod(lead)), tool.host.base_Bsk.size, n, 2 if n % 2 == 0 else 1)
+    assert (geo["vec"], geo["shoup"]) == (vec, shoup)
+    x = _res(np.random.default_rng(31), _rows_of(tool, "base_Bsk_m_tilde"), lead, n)
+    inv = pow(int(tool.host.inv_prod_q_mod_m_tilde), -1, 1 << 32)
+    plants = [(1 << 31) - 1, 1 << 31, (1 << 31) + 1, 0, (1 << 32) - 1]
+    first = (0,) * len(lead)
+    for c, r in enumerate(plants[:n]):
+        x[first + (-1, c)] = (-r % (1 << 32)) * inv % (1 << 32)
+    got, want = _both(sm_mrq, to_tensor(x, "cuda"), tool)
+    assert got.shape == lead + (tool.host.base_Bsk.size, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lead,n,vec,shoup", [
+    ((3, 128), 8192, 2, 1),   # the BFV chain's step: two coefficients a unit, Shoup
+    ((3, 4), 8192, 1, 1),
+    ((1,), 4096, 1, 0),       # a one-row call: limbs over the grid, Barrett
+    ((3,), 4160, 1, 0),
+    ((2,), 4097, 1, 0),
+])
+def test_behz_kernel_sk_tail_branches_and_geometry(bfv3, lead, n, vec, shoup):
+    """alpha at m_sk/2 (the positive branch) and m_sk/2 + 1 (the negative
+    one), each with x_sk at 0 and at m_sk - 1, planted in the first row's
+    first four coefficients, in each form that rns_geometry picks."""
+    from gemini_seal_tpu_torch.ops.rnsops import behz, rns_geometry
+
+    _, tool = bfv3
+    geo = rns_geometry(int(np.prod(lead)), tool.host.base_q.size, n, 2 if n % 2 == 0 else 1)
+    assert (geo["vec"], geo["shoup"]) == (vec, shoup)
+    rng = np.random.default_rng(32)
+    m_sk = tool.host.m_sk.value
+    conv = _res(rng, _rows_of(tool, "base_q") + [m_sk], lead, n)
+    x_bsk = _res(rng, _rows_of(tool, "base_Bsk"), lead, n)
+    prod_b = pow(int(tool.host.inv_prod_B_mod_m_sk), -1, m_sk)
+    first = (0,) * len(lead)
+    for c, (alpha, x_sk) in enumerate([(m_sk >> 1, 0), (m_sk >> 1, m_sk - 1),
+                                       ((m_sk >> 1) + 1, 0), ((m_sk >> 1) + 1, m_sk - 1)]):
+        x_bsk[first + (-1, c)] = x_sk
+        conv[first + (-1, c)] = (alpha * prod_b + x_sk) % m_sk
+    got, want = _both(behz, "sk_tail", to_tensor(conv, "cuda"), tool.sk_tail_consts,
+                      aux=to_tensor(x_bsk, "cuda"))
+    assert got.shape == lead + (tool.host.base_q.size, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 4160, 4097])
+@pytest.mark.parametrize("R", [1, 3, 128])
+@pytest.mark.parametrize("mode", ["plain_add", "plain_sub", "t_gamma"])
+def test_scale_round_kernel_rows_and_sizes(bfv3, mode, R, n):
+    """K7 in every mode at R = 1, 3 and 128 rows (plain modes: rows shared
+    by a thread beside rows over the grid), N = 4096 and 8192, a coefficient
+    count that is not a multiple of the tile and an odd one; m at 0, t - 1
+    and ceil(t/2), the gamma-centring boundary planted (t_gamma)."""
+    from gemini_seal_tpu_torch.ops.rnsops import scale_round
+
+    ctx, tool = bfv3
+    cd = ctx.first_context_data()
+    rng = np.random.default_rng(33 + R)
+    t = cd.parms.plain_modulus.value
+    if mode == "t_gamma":
+        g = tool.host.gamma.value
+        tg = np.stack([rng.integers(0, t, size=(R, n), dtype=np.uint64),
+                       rng.integers(0, g, size=(R, n), dtype=np.uint64)], axis=1)
+        inv_neg_g = pow(int(tool.host.neg_inv_q_mod_t_gamma[1]), -1, g)
+        tg[0, 1, :2] = [(g >> 1) * inv_neg_g % g, ((g >> 1) + 1) * inv_neg_g % g]
+        got, want = _both(scale_round, "t_gamma", to_tensor(tg, "cuda"), tool.t_gamma_consts)
+        assert got.shape == (R, n)
+    else:
+        c0 = _res(rng, [m.value for m in cd.parms.coeff_modulus], (R,), n)
+        m = rng.integers(0, t, size=n, dtype=np.uint64)
+        m[:3] = [0, t - 1, (t + 1) >> 1]
+        got, want = _both(scale_round, mode, to_tensor(c0, "cuda"),
+                          cd.plain_scaling_constants, plain=to_tensor(m, "cuda"))
+    assert torch.equal(got, want)
+
+
+def test_behz_and_scale_round_unaligned_inputs(bfv3):
+    """Inputs 8 bytes off a 16-byte boundary take one coefficient a unit."""
+    from gemini_seal_tpu_torch.ops.rnsops import scale_round, sm_mrq
+
+    ctx, tool = bfv3
+    rng = np.random.default_rng(34)
+    x = to_tensor(_res(rng, _rows_of(tool, "base_Bsk_m_tilde"), (2,), 8192), "cuda")
+    off = torch.empty(x.numel() + 1, dtype=torch.int64, device="cuda")
+    off[1:] = x.reshape(-1)
+    x_off = off[1:].view(x.shape)
+    assert x_off.data_ptr() % 16 == 8
+    got, want = _both(sm_mrq, x_off, tool)
+    assert torch.equal(got, want) and torch.equal(got, sm_mrq(x, tool))
+    cd = ctx.first_context_data()
+    c0 = to_tensor(_res(rng, [m.value for m in cd.parms.coeff_modulus], (3,), 8192), "cuda")
+    off = torch.empty(c0.numel() + 1, dtype=torch.int64, device="cuda")
+    off[1:] = c0.reshape(-1)
+    m = to_tensor(rng.integers(0, cd.parms.plain_modulus.value, size=8192, dtype=np.uint64),
+                  "cuda")
+    got, want = _both(scale_round, "plain_add", off[1:].view(c0.shape),
+                      cd.plain_scaling_constants, plain=m)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("b_kind", ["full", "broadcast"])
 def test_elementwise_kernel_submul(bfv3, b_kind):
     _, tool = bfv3
