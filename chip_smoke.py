@@ -136,9 +136,14 @@ The script
    registers and stack bytes (cuobjdump -res-usage; a stack frame means
    spills) of each instantiation of ntt_mxu, ntt (direction, row length),
    galois (signed, paired, row mode) and contract (coefficients a unit,
-   per-coefficient weights, staged inputs), the N=8192 ntt kernels' SASS
-   instructions a butterfly, and the contract kernels' SASS instructions a
-   MAC and an output;
+   per-coefficient weights, staged inputs), behz, scale_round, mod_raise
+   and negacyclic (each mode and form), the N=8192 ntt kernels' SASS
+   instructions a butterfly, the contract kernels' SASS instructions a MAC
+   and an output, and the behz, scale_round, mod_raise and negacyclic
+   kernels' SASS instructions an output and integer divisions (``divides``);
+   then the launch floor, an empty kernel timed as the kernels are at a few
+   grids, among them K8's at the N=4096 refresh and K9's at ex1's
+   multiply_plain;
 3. drives the twenty-four paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
@@ -304,6 +309,9 @@ RESOURCE_KERNELS = {
     "behz": (r"(sm_mrq|sk_tail)_kernelILi(\d)ELb(\d)E", ("mode", "vec", "shoup")),
     # mode: plain (sub: 0 plain_add, 1 plain_sub) / t_gamma
     "scale_round": (r"(plain|t_gamma)_kernelILi(\d)E(?:Lb(\d)E)?", ("mode", "vec", "sub")),
+    "mod_raise": (r"(mod_raise)_kernel", ("kernel",)),
+    # form: 0 shift, 1 Barrett by a per-limb tensor, 2 Shoup by host constants
+    "negacyclic": (r"(negacyclic)_kernelILi(\d)E", ("kernel", "form")),
 }
 
 
@@ -429,12 +437,15 @@ def contract_instructions(cuda, lib_path: str) -> dict:
 
 
 def rns_instructions(cuda, kernel: str, lib_path: str) -> dict:
-    """Static SASS instructions of each ``behz`` and ``scale_round`` kernel
-    instantiation an output, and whether it divides.  The innermost loop
-    that stores to global memory (STG) is the per-output loop (K6 the walk
-    over one row's limbs, K7's plain modes the row loop, t_gamma the row
-    loop), none of them unrolled: per_output = its instructions / (its
-    stores x coefficients a unit).  outer_per_unit: the instructions of the
+    """Static SASS instructions of each ``behz``, ``scale_round``,
+    ``mod_raise`` and ``negacyclic`` kernel instantiation an output, and
+    whether it divides.  The innermost loop that stores to global memory
+    (STG) is the per-output loop (K6 the walk over one row's limbs, K7's
+    plain modes the row loop, t_gamma the row loop, K8 the walk over a
+    thread's primes, unrolled twice): per_output = its instructions / (its
+    stores x coefficients a unit).  A kernel with no such loop (K9, one
+    output a thread) counts its whole body: per_output = its instructions /
+    (its stores x coefficients a unit).  outer_per_unit: the instructions of the
     loop around it beyond it, a column unit (K6 one row's r or alpha, K7
     plain one limb's inc).  divides: the function's MUFU.RCP (the start of
     a 32- or 64-bit integer division) and CALL instructions (a division
@@ -448,14 +459,18 @@ def rns_instructions(cuda, kernel: str, lib_path: str) -> dict:
         if not m:
             continue
         key = ",".join(f"{n}={v}" for n, v in zip(names, m.groups()) if v is not None)
-        vec = int(m.group(2))
+        vec = int(dict(zip(names, m.groups())).get("vec") or 1)
         loops = _loops(ins)
         spans = {lp: [i for i in ins if lp[0] <= i[0] <= lp[1]] for lp in loops}
         entry = {"instructions": len(_lane_ops(ins)),
                  "divides": sum(1 for i in ins if i[1].startswith(("MUFU.RCP", "CALL")))}
         storing = [lp for lp, body in spans.items() if any(i[1].startswith("STG") for i in body)]
         if not storing:
-            entry["error"] = "no storing loop found"
+            stores = sum(1 for i in ins if i[1].startswith("STG"))
+            if stores:
+                entry["per_output"] = entry["instructions"] / (stores * vec)
+            else:
+                entry["error"] = "no store found"
             out[key] = entry
             continue
         inner = min(storing, key=lambda lp: lp[1] - lp[0])
@@ -470,10 +485,13 @@ def rns_instructions(cuda, kernel: str, lib_path: str) -> dict:
     return out
 
 
-def launch_floor(torch, cuda, lib_path: str, reps: int) -> dict:
-    """Device ms of an empty kernel (scale_round.cu's gst_empty_launch) at a
-    few grids, timed as the kernels are (``event_ms``): the least a launch
-    of K7-K10's small calls can take."""
+LAUNCH_FLOOR_GRIDS = ((1, 32), (256, 128), (4096, 256))
+
+
+def launch_floor(torch, cuda, lib_path: str, reps: int, grids=LAUNCH_FLOOR_GRIDS) -> dict:
+    """Device ms of an empty kernel (scale_round.cu's gst_empty_launch) at
+    each (CTAs, threads) of `grids`, timed as the kernels are
+    (``event_ms``): the least a launch of K7-K10's small calls can take."""
     import ctypes
 
     fn = ctypes.CDLL(lib_path).gst_empty_launch
@@ -485,8 +503,7 @@ def launch_floor(torch, cuda, lib_path: str, reps: int) -> dict:
         if rc != 0:
             raise RuntimeError(f"empty kernel failed to launch: cudaError {rc}")
 
-    return {f"{b}x{t}": event_ms(torch, lambda: launch(b, t), reps)
-            for b, t in ((1, 32), (256, 128), (4096, 256))}
+    return {f"{b}x{t}": event_ms(torch, lambda: launch(b, t), reps) for b, t in grids}
 
 
 def nvidia_smi_line() -> str:
@@ -1106,6 +1123,8 @@ def main(argv=None) -> int:
     from gemini_seal_tpu_torch.ops import cuda
     from gemini_seal_tpu_torch.ops import ntt as ntt_ops
     from gemini_seal_tpu_torch.ops.backend import plain_versions, to_numpy, to_tensor
+    from gemini_seal_tpu_torch.ops.dyadic import negacyclic_geometry
+    from gemini_seal_tpu_torch.ops.modraise import mod_raise_geometry
     from gemini_seal_tpu_torch.utils import native
 
     rehearsal = args.cpu_rehearsal
@@ -1143,11 +1162,23 @@ def main(argv=None) -> int:
                   cuda, report["contract"]["path"]),
               "behz_sass_instructions": rns_instructions(cuda, "behz", report["behz"]["path"]),
               "scale_round_sass_instructions": rns_instructions(
-                  cuda, "scale_round", report["scale_round"]["path"])})
+                  cuda, "scale_round", report["scale_round"]["path"]),
+              "mod_raise_sass_instructions": rns_instructions(
+                  cuda, "mod_raise", report["mod_raise"]["path"]),
+              "negacyclic_sass_instructions": rns_instructions(
+                  cuda, "negacyclic", report["negacyclic"]["path"])})
         # an empty kernel at K7's grid (256 x 128: one ciphertext's c0 at
-        # N=8192) and a large call's, timed as the kernels are
+        # N=8192), a large call's, K8's at the N=4096 refresh and K9's at
+        # ex1's multiply_plain, timed as the kernels are
+        geo8 = mod_raise_geometry(2, 21, 4096)
+        geo9 = negacyclic_geometry(4096)
+        grids = LAUNCH_FLOOR_GRIDS + (
+            ((2 << geo8["log_tiles"]) * geo8["groups"], geo8["threads"]),
+            ((2 << geo9["log_tiles"]) * 2, geo9["threads"]))
         emit({"phase": "launch_floor", "card": card, "kernel": "empty_kernel",
-              "ms": launch_floor(torch, cuda, report["scale_round"]["path"], 20)})
+              "grids": {"mod_raise [2, 1, 4096] -> [2, 21, 4096]": "x".join(map(str, grids[3])),
+                        "negacyclic [2, 2, 4096]": "x".join(map(str, grids[4]))},
+              "ms": launch_floor(torch, cuda, report["scale_round"]["path"], 20, grids)})
         if not imma:
             raise AssertionError("ntt_mxu's SASS has no IMMA (int8 tensor-core) instruction")
 

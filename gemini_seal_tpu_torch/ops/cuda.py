@@ -18,6 +18,10 @@ the negacyclic shift with and without its monomial multiply, the NTT's
 chunk-local stages of the coefficient-sharded NTT (``sub_row``) and the two
 modes of its cross stages (``ntt_sp``: ``exchange``, ``rows``).  A call
 runs in at most one mode.
+
+``host_memo`` keeps host copies of the small constant tensors whose values
+a kernel takes by value in its parameter struct (``mod_raise``,
+``negacyclic``): each is copied from the device once, at its first call.
 """
 
 from __future__ import annotations
@@ -29,12 +33,14 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from typing import Dict
 
+import numpy as np
 import torch
 
 __all__ = ["KERNELS", "MODES", "LAUNCHES", "build", "call", "reset_launches",
-           "BUILD_REPORT"]
+           "BUILD_REPORT", "host_memo"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -64,9 +70,10 @@ KERNELS = {
                                          _I, _P]),
     "scale_round": ("scale_round.cu", "gst_scale_round", [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "mod_raise": ("mod_raise.cu", "gst_mod_raise", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "mod_raise": ("mod_raise.cu", "gst_mod_raise", [
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "negacyclic": ("negacyclic.cu", "gst_negacyclic", [
-        _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "infty_norm": ("infty_norm.cu", "gst_infty_norm", [_P, _P, _P, _I, _I, _I, _P]),
     "ntt_sp": ("ntt_sp.cu", "gst_ntt_sp", [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
@@ -188,6 +195,31 @@ def call(name: str, *args, mode=None) -> None:
         LAUNCHES[name] += 1
         if mode is not None:
             LAUNCHES[f"{name}:{mode}"] += 1
+
+
+_HOST_MEMO: Dict[tuple, tuple] = {}
+
+
+def host_memo(tensors, build):
+    """build(*values) of small constant tensors (their u64 values as
+    np.uint64 vectors), kept for as long as the same tensor objects live
+    unmodified.  The first call copies the values from the device, which
+    waits for the stream; later calls with the same tensors copy nothing.
+    A kernel that takes its constants by value gets them here."""
+    key = (build,) + tuple(id(t) for t in tensors)
+    versions = tuple(t._version for t in tensors)
+    with _LOCK:
+        hit = _HOST_MEMO.get(key)
+        if (hit is not None and hit[1] == versions
+                and all(r() is t for r, t in zip(hit[0], tensors))):
+            return hit[2]
+    out = build(*(t.detach().cpu().contiguous().reshape(-1).numpy().view(np.uint64)
+                  for t in tensors))
+    with _LOCK:
+        for k in [k for k, h in _HOST_MEMO.items() if any(r() is None for r in h[0])]:
+            del _HOST_MEMO[k]
+        _HOST_MEMO[key] = (tuple(weakref.ref(t) for t in tensors), versions, out)
+    return out
 
 
 def check(t: torch.Tensor, what: str, dtype=torch.int64) -> None:

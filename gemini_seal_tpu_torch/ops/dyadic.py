@@ -6,7 +6,10 @@ shaped [L, 1] against data [..., L, N].  On the card the ring ops and
 :func:`modulo_poly_coeffs` are one launch of the ``elementwise`` kernel
 (csrc/elementwise.cu), :func:`negacyclic_shift_poly` and
 :func:`negacyclic_mono_mul_poly` one launch of ``negacyclic``
-(csrc/negacyclic.cu) and :func:`poly_infty_norm` one launch of
+(csrc/negacyclic.cu: one thread an output, rows and tiles on the grid's x
+axis and limbs on y, the moduli and the monomial's constants by value, a
+scalar's as Shoup constants; :func:`negacyclic_geometry`) and
+:func:`poly_infty_norm` one launch of
 ``infty_norm`` (csrc/infty_norm.cu); on the CPU each runs its plain
 version (:func:`negacyclic_plain`, :func:`infty_norm_plain` and the modops
 chains).
@@ -22,7 +25,7 @@ import torch
 from ..modulus import Modulus
 from . import cuda
 from .backend import is_cuda
-from .modops import mul_mod, neg_mod, rns_elementwise
+from .modops import _pow2_ceil, mul_mod, neg_mod, rns_elementwise
 
 __all__ = [
     "LimbConstants",
@@ -36,6 +39,9 @@ __all__ = [
     "negacyclic_mono_mul_poly",
     "poly_infty_norm",
     "negacyclic_plain",
+    "negacyclic_constants",
+    "negacyclic_geometry",
+    "NEGACYCLIC_MAX_L",
     "infty_norm_plain",
 ]
 
@@ -130,6 +136,43 @@ def _i64(c: int) -> int:
     return c - (1 << 64) if c >= 1 << 63 else c
 
 
+# limbs a launch takes by value (csrc/negacyclic.cu NEGACYCLIC_MAX_L): the
+# most a chain may hold (modulus.py COEFF_MOD_COUNT_MAX)
+NEGACYCLIC_MAX_L = 64
+# the kernel's forms (csrc/negacyclic.cu FORM)
+_SHIFT, _BARRETT_LIMB, _SHOUP = range(3)
+
+
+def negacyclic_constants(p, ratio0, ratio1, coeff=None) -> np.ndarray:
+    """The by-value constants of one launch, u64[3L]: the L moduli, then the
+    product's two constants a limb: the Barrett ratios (the shift, and a
+    per-limb coefficient taken by mul_mod), or, for a scalar u64 coefficient
+    c, w = c mod p and its Shoup constant floor(w 2^64 / p), reduced on the
+    host: w is below p, which the kernel's one-correction Shoup product
+    needs (as check_shoup_operands asks of K6's and K7's multipliers).
+    Raises ValueError above NEGACYCLIC_MAX_L limbs."""
+    p, r0, r1 = (np.asarray(v, dtype=np.uint64).reshape(-1) for v in (p, ratio0, ratio1))
+    L = p.size
+    if not 1 <= L <= NEGACYCLIC_MAX_L or r0.size != L or r1.size != L:
+        raise ValueError(f"negacyclic: {L} moduli with {r0.size} and {r1.size} ratios "
+                         f"(1 to {NEGACYCLIC_MAX_L} moduli, one ratio each)")
+    if coeff is None:
+        return np.concatenate([p, r0, r1])
+    c = int(coeff) % (1 << 64)
+    w = [c % int(q) for q in p]
+    ws = [(wl << 64) // int(q) for wl, q in zip(w, p)]
+    return np.concatenate([p, np.array(w, dtype=np.uint64), np.array(ws, dtype=np.uint64)])
+
+
+def negacyclic_geometry(N: int) -> dict:
+    """The launch geometry of a row of N = 2^log_n outputs: one thread an
+    output, 2^``log_tiles`` CTAs of ``threads`` (256, or the row's width
+    below it, at least a warp).  port_tools/small_kernels.py --sweep times
+    64 and 128 threads against it."""
+    threads = min(256, max(32, _pow2_ceil(N)))
+    return {"threads": threads, "log_tiles": max(0, (N // threads).bit_length() - 1)}
+
+
 def _negacyclic(a, shift: int, limbs: LimbConstants, coeff=None):
     n = a.shape[-1]
     shift = int(shift) % (2 * n)
@@ -138,12 +181,14 @@ def _negacyclic(a, shift: int, limbs: LimbConstants, coeff=None):
         return negacyclic_plain(a, shift, limbs, coeff)
     if coeff is None and shift == 0:
         return a
-    if a.dim() < 2 or n & (n - 1):
-        raise ValueError(f"negacyclic: expected [..., L, N] with N a power of two, "
-                         f"got {tuple(a.shape)}")
+    if a.dim() < 2 or n & (n - 1) or n > 1 << 17:
+        raise ValueError(f"negacyclic: expected [..., L, N] with N a power of two up to "
+                         f"2^17, got {tuple(a.shape)}")
     L = a.shape[-2]
     if limbs.p.numel() != L:
         raise ValueError("negacyclic: modulus count does not match the limb axis")
+    if L > NEGACYCLIC_MAX_L:
+        raise ValueError(f"negacyclic: {L} limbs exceed the {NEGACYCLIC_MAX_L} a launch takes")
     if torch.is_tensor(coeff) and coeff.numel() != L:
         raise ValueError("negacyclic: the coefficient must be a scalar or [L, 1]")
     for t, what in ((a, "a"), (limbs.p, "p"), (limbs.ratio0, "ratio0"),
@@ -154,12 +199,21 @@ def _negacyclic(a, shift: int, limbs: LimbConstants, coeff=None):
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
-    mode = "shift" if coeff is None else "mono_mul"
+    if a.numel() >= 1 << 31:
+        raise ValueError("negacyclic: the tensor exceeds 2^31 words (32-bit offsets)")
+    consts = cuda.host_memo((limbs.p, limbs.ratio0, limbs.ratio1), negacyclic_constants)
+    if coeff is None:
+        form = _SHIFT
+    elif torch.is_tensor(coeff):
+        form = _BARRETT_LIMB
+    else:
+        form = _SHOUP
+        consts = negacyclic_constants(consts[:L], consts[L:2 * L], consts[2 * L:], coeff)
+    geo = negacyclic_geometry(n)
     cuda.call("negacyclic", cuda.ptr(out), cuda.ptr(a),
-              cuda.ptr(coeff) if torch.is_tensor(coeff) else 0,
-              0 if coeff is None or torch.is_tensor(coeff) else _i64(coeff),
-              cuda.ptr(limbs.p), cuda.ptr(limbs.ratio0), cuda.ptr(limbs.ratio1),
-              a.numel(), L, n.bit_length() - 1, shift, int(coeff is not None), mode=mode)
+              cuda.ptr(coeff) if form == _BARRETT_LIMB else 0, consts.ctypes.data, form,
+              a.numel() // (L * n), L, n.bit_length() - 1, shift, geo["threads"],
+              geo["log_tiles"], mode="shift" if coeff is None else "mono_mul")
     return out
 
 
@@ -177,8 +231,10 @@ def negacyclic_mono_mul_poly(a, mono_coeff, mono_exponent: int, limbs: LimbConst
     kernel's ``mono_mul`` mode, one launch for the multiply, the roll and
     the signs.  mono_coeff is a u64 Python int (one value for every limb) or
     an int64[L, 1] per-limb tensor on a's device; it may exceed q_i (a CRT
-    residue, or the fast plain lift's q_i - t + c < 2 q_i): the product is
-    reduced with the full 128-bit Barrett mul_mod, as in the JAX function."""
+    residue, or the fast plain lift's q_i - t + c < 2 q_i).  The kernel
+    multiplies by a tensor with the full 128-bit Barrett mul_mod, as the JAX
+    function does, and by a scalar with the Shoup product by c mod q_i that
+    the host computes: the same canonical value."""
     return _negacyclic(a, mono_exponent, limbs, mono_coeff)
 
 

@@ -949,29 +949,57 @@ def test_keygen_encrypt_decrypt_n32768(card):
     assert np.max(np.abs(np.asarray(out) - v)) < 1e-4
 
 
-@pytest.mark.parametrize("n,L", [(128, 3), (4096, 21), (4096, 24)])
+@pytest.mark.parametrize("n,L", [(128, 3), (4096, 21), (4096, 24), (4096, 1), (64, 64),
+                                 (2, 5), (1024, 64)])
 def test_mod_raise_kernel(card, n, L):
-    """K8 against its plain version: random residues mod q0 and the boundary
-    residues 0, q0/2, q0/2 + 1 and q0 - 1, at the bootstrap's row shapes
-    ([2, 1, N] with no batch axis, and a batch of 3)."""
+    """K8 against its plain version, one launch a call: random residues mod
+    q0 and the boundary residues 0, q0/2 - 1, q0/2, q0/2 + 1 and q0 - 1, at
+    the bootstrap's row shapes ([2, 1, N] with no batch axis, a batch of 3,
+    and 70,000 rows of N = 2, more than the grid's y axis), L from 1 to the
+    64 primes a launch takes (limb groups that do and do not divide L), and
+    an input at an 8-byte offset into its storage."""
     from gemini_seal_tpu_torch.modulus import Modulus
     from gemini_seal_tpu_torch.ops.modraise import mod_raise_lift
 
-    mods = [Modulus(p) for p in get_primes(n, 59, 1) + get_primes(n, 45, L - 1)]
+    mods = [Modulus(p) for p in get_primes(n, 59, 1) + (get_primes(n, 45, L - 1) if L > 1
+                                                         else [])]
     q0 = mods[0].value
     p, r1, qm = (to_tensor([f(m) for m in mods], card)
                  for f in (lambda m: m.value, lambda m: m.const_ratio[1], lambda m: q0 % m.value))
     rng = np.random.default_rng(n + L)
-    for lead in ((2,), (3, 2)):
+    pins = [0, (q0 >> 1) - 1, q0 >> 1, (q0 >> 1) + 1, q0 - 1]
+    for lead in ((2,), (3, 2)) + (((70000,),) if n == 2 else ()):
         c = rng.integers(0, q0, size=lead + (1, n), dtype=np.uint64)
         flat = c.reshape(-1)
-        flat[:4] = [0, q0 >> 1, (q0 >> 1) + 1, q0 - 1]
-        flat[-4:] = [q0 - 1, (q0 >> 1) + 1, q0 >> 1, 0]
+        m = min(5, flat.size)
+        flat[:m] = pins[:m]
+        flat[-m:] = pins[::-1][:m]
         x = to_tensor(c, card)
+        before = cuda.LAUNCHES["mod_raise"]
         got, want = _both(mod_raise_lift, x, p, r1, qm, q0 >> 1)
+        assert cuda.LAUNCHES["mod_raise"] == before + 1
         assert got.shape == lead + (L, n) and torch.equal(got, want)
         # row 0 is q0 itself: every residue comes back unchanged
         assert torch.equal(got[..., 0, :], x[..., 0, :])
+    # an input 8 bytes into its storage
+    xs = to_tensor(np.concatenate([[7], c.reshape(-1)[:2 * n]]).astype(np.uint64), card)
+    x1 = xs[1:].reshape(2, 1, n)
+    assert x1.data_ptr() % 16 == 8
+    got, want = _both(mod_raise_lift, x1, p, r1, qm, q0 >> 1)
+    assert torch.equal(got, want)
+
+
+def test_mod_raise_kernel_refuses_more_primes_than_a_launch_takes(card):
+    from gemini_seal_tpu_torch.modulus import Modulus
+    from gemini_seal_tpu_torch.ops.modraise import mod_raise_lift
+
+    mods = [Modulus(p) for p in get_primes(64, 50, 65)]
+    p, r1, qm = (to_tensor([f(m) for m in mods], card)
+                 for f in (lambda m: m.value, lambda m: m.const_ratio[1],
+                           lambda m: mods[0].value % m.value))
+    x = torch.zeros((2, 1, 64), dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="exceed the 64"):
+        mod_raise_lift(x, p, r1, qm, mods[0].value >> 1)
 
 
 @pytest.fixture(scope="module")
@@ -1051,12 +1079,13 @@ def test_bootstrap_matches_plain_path(card):
     assert np.abs(out - msg).max() < 5e-6
 
 
-@pytest.mark.parametrize("n", [64, 4096, 32768])
+@pytest.mark.parametrize("n", [2, 64, 4096, 32768, 65536, 131072])
 @pytest.mark.parametrize("mode", ["shift", "mono_scalar", "mono_per_limb"])
 def test_negacyclic_kernel(card, n, mode):
     """K9 in both modes on random residues with zeros planted, at the shifts
-    that wrap nothing, all or all but one coefficient, and beyond N; the
-    monomial's coefficient in [p, 2p) (the fast plain lift's q_i - t + c)."""
+    that wrap nothing, all or all but one coefficient, and beyond N, N = 2
+    to 2^17; the monomial's coefficient in [p, 2p) (the fast plain lift's
+    q_i - t + c), up to 2p - 1."""
     from gemini_seal_tpu_torch.ops import dyadic
 
     mods = _mods(n, (60, 50, 40))
@@ -1079,6 +1108,51 @@ def test_negacyclic_kernel(card, n, mode):
         label = "negacyclic:" + ("shift" if mode == "shift" else "mono_mul")
         assert cuda.LAUNCHES[label] == before[label] + 1
         assert torch.equal(got, want), (mode, k)
+
+
+@pytest.mark.parametrize("n,rows", [(2, 3), (64, 5), (4096, 2), (8192, 2), (2, 70000)])
+@pytest.mark.parametrize("threads", [32, 64, 256])
+def test_negacyclic_kernel_forms(card, monkeypatch, n, rows, threads):
+    """Each form of K9 (the shift, the Barrett product by a per-limb tensor,
+    the Shoup product by a scalar's host constants) at CTAs of 32, 64 and
+    256 threads forced through the host's geometry (one CTA and several a
+    row), at every k edge, against the plain version with one launch a call;
+    the scalar coefficient at 0, 1, p_0 - 1, p_0 and 2p - 1 of the largest
+    prime, the per-limb one at 2p - 1; 70,000 rows of N = 2 on the grid's x
+    axis."""
+    from gemini_seal_tpu_torch.ops import dyadic
+
+    def forced(N):
+        t = min(threads, max(32, 1 << (N - 1).bit_length()))
+        return {"threads": t, "log_tiles": (-(-N // t) - 1).bit_length()}
+    monkeypatch.setattr(dyadic, "negacyclic_geometry", forced)
+    mods = _mods(n, (60, 50, 40))
+    limbs = LimbConstants.from_moduli(mods, card)
+    x = _res(np.random.default_rng(n + rows), mods, (rows,), n)
+    x[..., ::5] = 0
+    a = to_tensor(x, card)
+    col = to_tensor(np.array([2 * p - 1 for p in mods], dtype=np.uint64).reshape(-1, 1), card)
+    scalars = (0, 1, mods[0] - 1, mods[0], 2 * max(mods) - 1)
+    for k in sorted({0, 1, n - 1, n, n + 1, 2 * n - 1}):
+        calls = [(dyadic.negacyclic_mono_mul_poly, (a, c, k, limbs)) for c in scalars]
+        calls.append((dyadic.negacyclic_mono_mul_poly, (a, col, k, limbs)))
+        if k:
+            calls.append((dyadic.negacyclic_shift_poly, (a, k, limbs)))
+        for fn, args in calls:
+            before = cuda.LAUNCHES["negacyclic"]
+            got, want = _both(fn, *args)
+            assert cuda.LAUNCHES["negacyclic"] == before + 1
+            assert torch.equal(got, want), (k, fn.__name__)
+
+
+def test_negacyclic_kernel_refuses_more_limbs_than_a_launch_takes(card):
+    from gemini_seal_tpu_torch.ops import dyadic
+
+    mods = get_primes(64, 50, 65)
+    limbs = LimbConstants.from_moduli(mods, card)
+    a = torch.zeros((1, 65, 64), dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="exceed the 64"):
+        dyadic.negacyclic_mono_mul_poly(a, 3, 1, limbs)
 
 
 @pytest.mark.parametrize("n", [64, 4096, 32768])
