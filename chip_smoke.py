@@ -131,10 +131,13 @@ The script
 
 1. prints the card (nvidia-smi name and power limit, torch and CUDA);
 2. builds the twelve kernels (nvcc, one process each, in parallel) and
-   prints each one's -Xptxas -v summary, the count of IMMA (int8
-   tensor-core) instructions in ntt_mxu's SASS (cuobjdump -sass), the
-   registers and stack bytes (cuobjdump -res-usage; a stack frame means
-   spills) of each instantiation of ntt_mxu, ntt (direction, row length),
+   prints each one's -Xptxas -v summary, the count of IGMMA (wgmma, int8
+   tensor-core) and IMMA (mma.sync) instructions in each ntt_mxu
+   instantiation's SASS (cuobjdump -sass; it fails unless every one has
+   IGMMA and none IMMA), the registers and stack bytes (cuobjdump
+   -res-usage; a stack frame means spills, and it fails on one in ntt_mxu
+   or infty_norm) of each instantiation of ntt_mxu (data columns a stage,
+   W resident), infty_norm (cluster or not), ntt (direction, row length),
    galois (signed, paired, row mode) and contract (coefficients a unit,
    per-coefficient weights, staged inputs), behz, scale_round, mod_raise
    and negacyclic (each mode and form), the N=8192 ntt kernels' SASS
@@ -142,8 +145,9 @@ The script
    and an output, and the behz, scale_round, mod_raise and negacyclic
    kernels' SASS instructions an output and integer divisions (``divides``);
    then the launch floor, an empty kernel timed as the kernels are at a few
-   grids, among them K8's at the N=4096 refresh and K9's at ex1's
-   multiply_plain;
+   grids, among them K8's at the N=4096 refresh, K9's at ex1's
+   multiply_plain and K10's at ex1's [2, 2, 4096] (in its clusters of
+   eight CTAs, and as a plain launch);
 3. drives the twenty-four paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
@@ -155,7 +159,9 @@ The script
    for ``mod_raise`` and ``elementwise`` reduce64 beside torch.remainder,
    for ``negacyclic`` beside torch.roll + torch.where, for ``infty_norm``
    beside torch.amax, for ``ntt_mxu`` beside its digit-pair products as
-   torch._int_mm calls); in the refresh and the per-op paths, whose steps
+   torch._int_mm calls; ntt_mxu's int8 MACs are each limb's own digit
+   pairs, which the kernel computes, with the tables' 49-pair count and
+   its bound beside them); in the refresh and the per-op paths, whose steps
    repeat call shapes, each distinct call is timed once;
    ``scale_round``, which runs in encryption and decryption only, is timed
    at those calls; a kernel's modes (the large-ring NTT, one cluster
@@ -297,7 +303,11 @@ def cuobjdump(cuda, flag: str, lib_path: str) -> str:
 # each kernel whose instantiations the build line lists: the mangled name's
 # template arguments, and what they mean
 RESOURCE_KERNELS = {
-    "ntt_mxu": (r"ntt_mxu_kernelILi(\d+)ELi(\d+)E", ("DW", "DX")),
+    # NT: data columns a stage (wgmma's N); resident: W in shared memory (K <=
+    # 128); KS: k32 steps of W held at once
+    "ntt_mxu": (r"ntt_mxu_kernelILi(\d+)ELb(\d)ELi(\d)E", ("NT", "resident", "KS")),
+    # cluster: a row over a cluster of CTAs (else one CTA)
+    "infty_norm": (r"(infty_norm)_kernelILb(\d)E", ("kernel", "cluster")),
     "ntt": (r"ntt_kernelILb(\d)ELi(\d+)E", ("inverse", "log2 row")),
     # mode: 0 the whole row in one CTA, 1 one slice a CTA, 2 a cluster a row
     "galois": (r"galois_kernelILb(\d)ELb(\d)ELi(\d)E", ("signed", "paired", "mode")),
@@ -379,6 +389,22 @@ def _loops(ins):
             if isinstance(t, int) and t <= addr:
                 loops.append((t, addr))
     return loops
+
+
+def ntt_mxu_mma_instructions(cuda, lib_path: str) -> dict:
+    """Each K12 instantiation's tensor-core instructions in its SASS:
+    IGMMA (wgmma, int8) and IMMA (mma.sync, int8)."""
+    import re
+
+    out = {}
+    pattern, names = RESOURCE_KERNELS["ntt_mxu"]
+    for name, ins in _sass_functions(cuobjdump(cuda, "-sass", lib_path)).items():
+        m = re.search(pattern, name)
+        if m:
+            key = ",".join(f"{n}={v}" for n, v in zip(names, m.groups()))
+            out[key] = {op: sum(1 for i in ins if i[1].startswith(op + "."))
+                        for op in ("IGMMA", "IMMA")}
+    return out
 
 
 def ntt_instructions_per_butterfly(cuda, lib_path: str) -> dict:
@@ -486,6 +512,32 @@ def rns_instructions(cuda, kernel: str, lib_path: str) -> dict:
 
 
 LAUNCH_FLOOR_GRIDS = ((1, 32), (256, 128), (4096, 256))
+
+
+def launch_floor_cluster(torch, lib_path: str, reps: int, grids) -> dict:
+    """Device ms of an empty kernel launched as K10 launches
+    (infty_norm.cu's gst_empty_cluster_launch) at each (CTAs, threads,
+    CTAs a cluster) of `grids`, timed as the kernels are (``event_ms``)."""
+    import ctypes
+
+    fn = ctypes.CDLL(lib_path).gst_empty_cluster_launch
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(blocks, threads, cluster):
+        rc = fn(blocks, threads, cluster, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty cluster kernel failed to launch: cudaError {rc}")
+
+    return {f"{b}x{t}/{c}": event_ms(torch, lambda: launch(b, t, c), reps) for b, t, c in grids}
+
+
+def infty_norm_grid(lead: int, L: int, N: int):
+    """(CTAs, threads, CTAs a cluster) of K10's launch on [lead, L, N]."""
+    from gemini_seal_tpu_torch.ops.dyadic import infty_norm_geometry
+
+    geo = infty_norm_geometry(N, lead * L)
+    return ((lead << geo["log_tiles"]) * L, geo["threads"], 1 << geo["log_tiles"])
 
 
 def launch_floor(torch, cuda, lib_path: str, reps: int, grids=LAUNCH_FLOOR_GRIDS) -> dict:
@@ -868,15 +920,23 @@ def work(kernel, fn_name, args, kwargs, result):
     return nbytes, ops
 
 
-def int8_macs(kernel, args, kwargs) -> int:
-    """int8 tensor-core multiply-adds of an ntt_mxu pass as _digit_matmul
-    defines them: every digit pair (DW x DX) of K x K x (other axis)
-    products a row; 0 for the other kernels."""
+def int8_macs(kernel, args, kwargs, table_counts: bool = False) -> int:
+    """int8 tensor-core multiply-adds of an ntt_mxu pass: K x K x (other
+    axis) products a row for each of its limb's own digit pairs (dw_l x
+    dx_l, ops.ntt_mxu.limb_counts: what the kernel computes),
+    or with table_counts every pair of the tables' counts (DW x DX, as
+    _digit_matmul defines them); 0 for the other kernels."""
     if kernel != "ntt_mxu":
         return 0
+    from gemini_seal_tpu_torch.ops.ntt_mxu import limb_counts
+
     x, w, tables = args[0], args[1], args[2]
-    side = w.shape[-1]
-    return (x.numel() // side) * side * side * tables.ndig_w * tables.ndig_x
+    side, L = w.shape[-1], w.shape[0]
+    per_row = (x.numel() // (L * side)) * side * side
+    if table_counts:
+        return per_row * L * tables.ndig_w * tables.ndig_x
+    dws, dxs = limb_counts(w, tables)
+    return per_row * sum(a * b for a, b in zip(dws, dxs))
 
 
 def bound_of(nbytes, ops, macs):
@@ -1149,11 +1209,11 @@ def main(argv=None) -> int:
     if not rehearsal:
         t0 = time.perf_counter()
         report = cuda.build()
-        imma = cuobjdump(cuda, "-sass", report["ntt_mxu"]["path"]).count("IMMA")
+        mxu_mma = ntt_mxu_mma_instructions(cuda, report["ntt_mxu"]["path"])
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "kernels": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
                           for k, v in report.items()},
-              "ntt_mxu_sass_imma_instructions": imma,
+              "ntt_mxu_sass_mma_instructions": mxu_mma,
               "resources": {k: kernel_resources(cuda, k, report[k]["path"])
                             for k in RESOURCE_KERNELS},
               "ntt_sass_instructions_per_butterfly": ntt_instructions_per_butterfly(
@@ -1175,12 +1235,25 @@ def main(argv=None) -> int:
         grids = LAUNCH_FLOOR_GRIDS + (
             ((2 << geo8["log_tiles"]) * geo8["groups"], geo8["threads"]),
             ((2 << geo9["log_tiles"]) * 2, geo9["threads"]))
+        grid10 = infty_norm_grid(2, 2, 4096)
         emit({"phase": "launch_floor", "card": card, "kernel": "empty_kernel",
               "grids": {"mod_raise [2, 1, 4096] -> [2, 21, 4096]": "x".join(map(str, grids[3])),
-                        "negacyclic [2, 2, 4096]": "x".join(map(str, grids[4]))},
-              "ms": launch_floor(torch, cuda, report["scale_round"]["path"], 20, grids)})
-        if not imma:
-            raise AssertionError("ntt_mxu's SASS has no IMMA (int8 tensor-core) instruction")
+                        "negacyclic [2, 2, 4096]": "x".join(map(str, grids[4])),
+                        "infty_norm [2, 2, 4096] (CTAs x threads / CTAs a cluster)":
+                            "{}x{}/{}".format(*grid10)},
+              "ms": {**launch_floor(torch, cuda, report["scale_round"]["path"], 20, grids),
+                     **launch_floor_cluster(torch, report["infty_norm"]["path"], 20,
+                                            (grid10, grid10[:2] + (1,)))}})
+        # every instantiation of K12 runs its products as warpgroup MMAs
+        # (IGMMA, int8) and none as mma.sync (IMMA); none of K10's or K12's
+        # keeps a stack frame
+        for key, count in mxu_mma.items():
+            if not count["IGMMA"] or count["IMMA"]:
+                raise AssertionError(f"ntt_mxu {key}: {count} (expected warpgroup MMAs only)")
+        for k in ("ntt_mxu", "infty_norm"):
+            for key, r in kernel_resources(cuda, k, report[k]["path"]).items():
+                if r.get("STACK", 0):
+                    raise AssertionError(f"{k} {key} keeps a stack frame of {r['STACK']} bytes")
 
     if args.nccl_only:
         if torch.cuda.device_count() < 4:
@@ -1239,6 +1312,7 @@ def main(argv=None) -> int:
             return
         nbytes, ops = work(kernel, fn.__name__, cargs, ckw, result)
         macs = int8_macs(kernel, cargs, ckw)
+        macs_tables = int8_macs(kernel, cargs, ckw, table_counts=True)
         ms = plain_ms = lib_ms = lib = None
         if kernel == "ntt_mxu":
             from gemini_seal_tpu_torch.ops import ntt_mxu
@@ -1297,7 +1371,11 @@ def main(argv=None) -> int:
         row["step_calls"].append({"path": path, "fn": fn.__name__, "signature": repr(key[2]),
                                   "mode": mode, "ms": ms, "plain_ms": plain_ms,
                                   "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
-                                  "bytes": nbytes, "imads": ops, "int8_macs": macs})
+                                  "bytes": nbytes, "imads": ops, "int8_macs": macs,
+                                  **({"int8_macs_at_table_counts": macs_tables,
+                                      "bound_ms_at_table_counts":
+                                          bound_of(nbytes, ops, macs_tables)[0]}
+                                     if kernel == "ntt_mxu" else {})})
         for acc in (row["by_path"],) + ((by_mode["by_path"],) if mode is not None else ()):
             bp = acc.setdefault(path, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                        "bound_ms": 0.0, "bytes": 0, "imads": 0, "int8_macs": 0,
@@ -2751,6 +2829,20 @@ def main(argv=None) -> int:
 
             def mean(name, field):
                 return sum(t[field] for t in turns[name]) / len(turns[name])
+
+            # the least time of a transform's two passes: rows x N x (N1 + N2)
+            # MACs a digit pair, at each limb's pairs and at the tables'
+            per_pair = (rows_m // len(tabs.moduli)) * tabs.n * (tabs.n1 + tabs.n2)
+            bounds = {}
+            for d in ("forward", "inverse"):
+                col, row = ("fwd_col", "fwd_row") if d == "forward" else ("inv_col", "inv_row")
+                for label, pairs in (
+                        ("per_limb_pairs", [a * b for a, b in
+                                            zip(tabs.limb_ndig_w[col], tabs.limb_ndig_x)]),
+                        ("table_pairs", [tabs.ndig_w * tabs.ndig_x] * len(tabs.moduli))):
+                    bounds.setdefault(label, {})[d] = (
+                        max(per_pair * sum(pairs) / INT8_MAC_PER_S,
+                            4 * xm.numel() * 8 / HBM_BYTES_PER_S) * 1e3)
             emit({"phase": "ntt_mxu", "path": path, "n": tabs.n, "moduli_bits":
                   [int(p).bit_length() for p in tabs.moduli], "rows": rows_m, "card": card,
                   "table_build_seconds": build_s,
@@ -2761,7 +2853,11 @@ def main(argv=None) -> int:
                   "device_ms_per_transform": {k: [t["device_ms"] for t in v]
                                               for k, v in turns.items()},
                   "device_busy_share": {k: [t["device_busy_share"] for t in v]
-                                        for k, v in turns.items()}})
+                                        for k, v in turns.items()},
+                  "bound_ms_per_transform": bounds,
+                  "share_of_bound": {label: {d: b / mean(f"mxu_{d}", "device_ms")
+                                             for d, b in v.items()}
+                                     for label, v in bounds.items()}})
 
     # 6d. the schedules over NCCL, one process per card, when the machine has
     # four cards (the one-card run above is four threads of this process)

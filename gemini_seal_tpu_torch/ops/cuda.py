@@ -21,7 +21,7 @@ runs in at most one mode.
 
 ``host_memo`` keeps host copies of the small constant tensors whose values
 a kernel takes by value in its parameter struct (``mod_raise``,
-``negacyclic``): each is copied from the device once, at its first call.
+``negacyclic``, ``infty_norm``, ``ntt_mxu``): each is copied from the device once, at its first call.
 """
 
 from __future__ import annotations
@@ -74,11 +74,11 @@ KERNELS = {
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "negacyclic": ("negacyclic.cu", "gst_negacyclic", [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "infty_norm": ("infty_norm.cu", "gst_infty_norm", [_P, _P, _P, _I, _I, _I, _P]),
+    "infty_norm": ("infty_norm.cu", "gst_infty_norm", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "ntt_sp": ("ntt_sp.cu", "gst_ntt_sp", [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     "ntt_mxu": ("ntt_mxu.cu", "gst_ntt_mxu", [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 # kernel name -> the modes that a call names (see ``call``)

@@ -10,7 +10,9 @@ shaped [L, 1] against data [..., L, N].  On the card the ring ops and
 axis and limbs on y, the moduli and the monomial's constants by value, a
 scalar's as Shoup constants; :func:`negacyclic_geometry`) and
 :func:`poly_infty_norm` one launch of
-``infty_norm`` (csrc/infty_norm.cu); on the CPU each runs its plain
+``infty_norm`` (csrc/infty_norm.cu: a row over a cluster of CTAs reduced
+through distributed shared memory, the moduli by value;
+:func:`infty_norm_geometry`); on the CPU each runs its plain
 version (:func:`negacyclic_plain`, :func:`infty_norm_plain` and the modops
 chains).
 """
@@ -43,6 +45,8 @@ __all__ = [
     "negacyclic_geometry",
     "NEGACYCLIC_MAX_L",
     "infty_norm_plain",
+    "infty_norm_geometry",
+    "INFTY_NORM_MAX_L",
 ]
 
 
@@ -246,22 +250,59 @@ def infty_norm_plain(a, limbs: LimbConstants):
     return torch.amax(mag, dim=-1)
 
 
+# limbs a launch takes by value and CTAs a row's cluster spans
+# (csrc/infty_norm.cu INFTY_NORM_MAX_L, INFTY_NORM_MAX_CLUSTER)
+INFTY_NORM_MAX_L = 64
+INFTY_NORM_MAX_CLUSTER = 8
+
+
+def _host_moduli(p) -> np.ndarray:
+    """The moduli a launch of ``infty_norm`` takes by value (host u64)."""
+    return np.ascontiguousarray(p, dtype=np.uint64)
+
+
+def infty_norm_geometry(N: int, rows: int = 1) -> dict:
+    """The launch geometry of `rows` rows of N = 2^log_n coefficients: a
+    cluster of 2^``log_tiles`` CTAs a row (at most 8, as many as bring the
+    call to about two CTAs an SM, no more than the row fills) of
+    ``threads`` (N / 16 within 32-256), each thread reading two coefficients
+    (16 bytes) a step for ``iters`` steps.  Thread t of CTA ``tile`` reads
+    coefficients 2 (s T C + tile T + t) and the next, T threads and C CTAs a
+    row, at step s: every coefficient once."""
+    threads = min(256, max(32, N // 16))
+    want = max(1, 2 * 132 // max(1, rows))
+    tiles = min(INFTY_NORM_MAX_CLUSTER, 1 << (want.bit_length() - 1),
+                max(1, N // (2 * threads)))
+    return {"threads": threads, "log_tiles": tiles.bit_length() - 1,
+            "iters": -(-N // (2 * threads * tiles))}
+
+
 def poly_infty_norm(a, limbs: LimbConstants):
     """Max |a_i| under the centred lift per limb (polyarithsmallmod.h:599):
     int64[..., L, N] residues in [0, q_i) -> int64[..., L], one launch of the
-    ``infty_norm`` kernel (one block per row)."""
+    ``infty_norm`` kernel (a cluster of CTAs a row where the rows are few,
+    :func:`infty_norm_geometry`; the moduli by value)."""
     if not is_cuda(a, limbs.p):
         return infty_norm_plain(a, limbs)
     if a.dim() < 2:
         raise ValueError(f"infty_norm: expected [..., L, N], got {tuple(a.shape)}")
     L, n = a.shape[-2:]
+    if n < 2 or n & (n - 1) or n > 1 << 17:
+        raise ValueError(f"infty_norm: expected N a power of two from 2 to 2^17, got {n}")
     if limbs.p.numel() != L:
         raise ValueError("infty_norm: modulus count does not match the limb axis")
+    if L > INFTY_NORM_MAX_L:
+        raise ValueError(f"infty_norm: {L} limbs exceed the {INFTY_NORM_MAX_L} a launch takes")
     cuda.check(a, "infty_norm a")
     cuda.check(limbs.p, "infty_norm p")
     out = torch.empty(a.shape[:-1], dtype=torch.int64, device=a.device)
     if a.numel() == 0:
         return out
-    cuda.call("infty_norm", cuda.ptr(out), cuda.ptr(a), cuda.ptr(limbs.p),
-              a.numel() // n, L, n)
+    if a.data_ptr() % 16:
+        raise ValueError("infty_norm: the input must be 16-byte aligned (two coefficients a load)")
+    mods = cuda.host_memo((limbs.p,), _host_moduli)
+    R = a.numel() // (L * n)
+    geo = infty_norm_geometry(n, R * L)
+    cuda.call("infty_norm", cuda.ptr(out), cuda.ptr(a), mods.ctypes.data, R, L,
+              n.bit_length() - 1, geo["threads"], geo["log_tiles"], geo["iters"])
     return out

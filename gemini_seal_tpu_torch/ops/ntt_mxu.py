@@ -26,21 +26,29 @@ What each part replaces (gemini_seal_tpu/ops/ntt_mxu.py):
 - :func:`mxu_pass` (kernel ``ntt_mxu``, csrc/ntt_mxu.cu): :362-367
   ``_pass``, plus the twist of :380 / :399 (``mul_mod_shoup``,
   ops/modops.py:184-190) as the epilogue of each direction's first pass;
+  the kernel sums each limb's own digit pairs only (``limb_ndig_w``,
+  ``limb_ndig_x``: the pairs left out multiply zeros) and folds the planes
+  five at a time into a residue by Shoup products (``fold_constants``) in
+  place of the 128-bit ladder's one Barrett reduction: the same canonical
+  value (:func:`mxu_pass_plain_limbs` is its sum in plain PyTorch);
 - :func:`ntt_forward_mxu`, :func:`ntt_inverse_mxu`: :370-404, two launches
   each.
 
 On a CPU tensor :func:`mxu_pass` runs its plain version, the JAX arithmetic
 step by step; on a CUDA tensor it launches the kernel, whose digit-pair
-products run on the int8 tensor cores.  Its floor on an H100 (700 W) is the
-tensor cores' 989.5e12 int8 MACs/s: 49 digit pairs x N1 x N1 x N2 (pass A)
-or N1 x N2 x N2 (pass B) MACs a poly-limb row, 0.16 ms a pass at N=16384
-on 1,536 rows (six primes, batch 128 x 2), above its 0.06 ms of bytes.
+products run on the int8 tensor cores (wgmma).  Its floor on an H100
+(700 W) is the tensor cores' 989.5e12 int8 MACs/s: dw_l x dx_l digit pairs
+x N1 x N1 x N2 (pass A) or N1 x N2 x N2 (pass B) MACs a poly-limb row,
+0.13 ms a pass at N=16384 on 1,536 rows (primes of 50, 40 x 4 and 50 bits,
+batch 128 x 2: 40.3 pairs a limb on average; 0.16 ms at the tables' 49),
+beside 0.12 ms for its bytes.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Sequence
+import functools
+from dataclasses import dataclass, field
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,16 +59,21 @@ from . import cuda, modops
 from .backend import is_cuda, resolve_device, to_tensor
 
 __all__ = ["MxuNttTables", "build_mxu_ntt_tables", "ntt_forward_mxu", "ntt_inverse_mxu",
-           "mxu_pass", "mxu_pass_plain"]
+           "mxu_pass", "mxu_pass_plain", "mxu_pass_plain_limbs", "limb_counts",
+           "ntt_mxu_geometry", "ntt_mxu_layout", "GEOM_FIELDS", "fold_constants", "MXU_MAX_L"]
 
 U64 = 0xFFFFFFFFFFFFFFFF
 DIGIT_BITS = 8
 BASE = 1 << DIGIT_BITS
 # the carry-free lane offset 0x80..80 of the data split, as an int64 bit pattern
 _LANE_OFFSET = int("80" * 8, 16) - (1 << 64)
-# the kernel's digit counts: DW weight digits, DX = DW or DW + 1 data digits
-# (the data's digits cover [0, 2p), at most one more than p's)
-KERNEL_DW = range(2, 8)
+# what the kernel takes: at most 7 weight and 8 data digits (15 planes,
+# three groups of five) and 64 limbs a launch (the counts go by value,
+# csrc/ntt_mxu.cu MAX_L)
+KERNEL_DW_MAX, KERNEL_DX_MAX = 7, 8
+MXU_MAX_L = 64
+# the four digit-plane tables of MxuNttTables
+_TABLES = ("fwd_col", "fwd_row", "inv_col", "inv_row")
 
 
 def _shoupify(x: int, p: int) -> int:
@@ -142,6 +155,20 @@ class MxuNttTables:
     ratio0: torch.Tensor         # u64 [L] Barrett lo word of floor(2^128/p)
     ratio1: torch.Tensor         # u64 [L] Barrett hi word
     neg_offset: torch.Tensor     # u64 [L, 2] (lo, hi) multiple-of-p ladder offset
+    # beyond the JAX fields: each limb's own digit counts, over which the
+    # kernel sums (the pairs above them multiply zeros).  limb_ndig_w[name][l]
+    # is 1 + the highest plane of table `name`'s limb l that holds a nonzero
+    # byte; limb_ndig_x[l] is _digits_for_data(2 p_l - 1), above which every
+    # digit of an x in [0, 2 p_l) is 0.
+    limb_ndig_w: Dict[str, Tuple[int, ...]] = field(default_factory=dict)
+    limb_ndig_x: Tuple[int, ...] = ()
+
+
+def _planes_used(dig: np.ndarray) -> Tuple[int, ...]:
+    """1 + the highest digit plane of each limb of an int8 [L, DW, K, K]
+    table that holds a nonzero byte (at least 1)."""
+    nz = dig.reshape(dig.shape[0], dig.shape[1], -1).any(axis=2)
+    return tuple(1 + max([d for d in range(dig.shape[1]) if row[d]] or [0]) for row in nz)
 
 
 def build_mxu_ntt_tables(coeff_count_power: int, moduli: Sequence,
@@ -258,6 +285,8 @@ def build_mxu_ntt_tables(coeff_count_power: int, moduli: Sequence,
     def i8(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
+    limb_w = {name: _planes_used(arr) for name, arr in
+              zip(_TABLES, (fwd_col, fwd_row, inv_col, inv_row))}
     return MxuNttTables(
         n=n, n1=n1, n2=n2, moduli=mods, ndig_w=ndig_w, ndig_x=ndig_x,
         fwd_col=i8(fwd_col), fwd_row=i8(fwd_row),
@@ -267,6 +296,7 @@ def build_mxu_ntt_tables(coeff_count_power: int, moduli: Sequence,
         modulus=to_tensor(np.array(mods, dtype=np.uint64), dev),
         ratio0=to_tensor(ratio0, dev), ratio1=to_tensor(ratio1, dev),
         neg_offset=to_tensor(neg_off, dev),
+        limb_ndig_w=limb_w, limb_ndig_x=tuple(_digits_for_data(2 * p - 1) for p in mods),
     )
 
 
@@ -352,6 +382,135 @@ def mxu_pass_plain(x, w_dig, tables: MxuNttTables, contract_x: str, twist=None):
     return out.contiguous()
 
 
+def limb_counts(w_dig, tables: MxuNttTables) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Each limb's (weight, data) digit counts for a pass with the digit
+    planes ``w_dig``: the tables' own counts for one of their four tables,
+    the tables' largest counts for any other tensor (which skips nothing)."""
+    for name in _TABLES:
+        if getattr(tables, name) is w_dig and name in tables.limb_ndig_w:
+            return tables.limb_ndig_w[name], tables.limb_ndig_x
+    L = len(tables.moduli)
+    return (tables.ndig_w,) * L, (tables.ndig_x,) * L
+
+
+def mxu_pass_plain_limbs(x, w_dig, tables: MxuNttTables, contract_x: str, twist=None,
+                         counts=None):
+    """The kernel's sum in plain PyTorch: :func:`mxu_pass_plain` with each
+    limb's planes summed over its own digit pairs only (``counts``, else
+    :func:`limb_counts`), then the same offset, ladder and Barrett
+    reduction.  Equal bit for bit to :func:`mxu_pass_plain`: the pairs left
+    out multiply zeros."""
+    dws, dxs = counts if counts is not None else limb_counts(w_dig, tables)
+    s_max = tables.ndig_w + tables.ndig_x - 1
+    per_limb = []
+    for li in range(len(tables.moduli)):
+        x_dig = _balanced_digits_dev(x[..., li:li + 1, :, :], dxs[li])
+        pl = _digit_matmul(x_dig, w_dig[li:li + 1, :dws[li]], contract_x)
+        per_limb.append(pl + [torch.zeros_like(pl[0])] * (s_max - len(pl)))
+    planes = [torch.cat([pl[s] for pl in per_limb], dim=-3) for s in range(s_max)]
+    out = _combine_planes(planes, tables)
+    if twist is not None:
+        out = modops.mul_mod_shoup(out, twist[0], twist[1], tables.modulus.reshape(-1, 1, 1))
+    return out.contiguous()
+
+
+# the int64 launch description that csrc/ntt_mxu.cu takes from the host, in
+# its order (gst_ntt_mxu checks each against its instantiations)
+GEOM_FIELDS = ("nt", "mt", "log_mblocks", "log_ntiles", "stages", "plane_bytes", "stage_bytes",
+               "box_bytes", "raw_half", "boxes", "w_off", "st_off", "raw_off", "smem", "grid_x")
+_SMEM_LIMIT = 232448   # the card's shared memory a CTA (227 KB)
+
+
+def ntt_mxu_layout(nt: int, K: int, n: int, R: int, L: int, dwt: int, dxt: int, mode: int,
+                   sms: int) -> dict:
+    """The launch of a pass at ``nt`` data columns a stage: W's 64-row tiles a
+    CTA (mt) and 128-row blocks a limb (2^log_mblocks, grid y = L <<
+    log_mblocks), a row's nt-column data tiles (2^log_ntiles), the items
+    (data tiles) of a limb, the persistent grid's x (one CTA an SM), and
+    the shared-memory layout: mbarriers and constants (256 bytes), W's
+    digit planes where they stay resident (K <= 128), as many stages as fit
+    (at most 8), the two raw halves of TMA boxes 1024-byte aligned."""
+    res = K <= 128
+    Kp = max(32, K)
+    kst = Kp // 32
+    mt = (2 if K > 64 else 1) if res else 2
+    log_mblocks = 0 if res else (K // 128).bit_length() - 1
+    log_ntiles = (n // nt).bit_length() - 1 if n > nt else 0
+    items = (R // L) << log_ntiles
+    plane = nt * Kp
+    stage = dxt * plane
+    boxes = nt // 16 if mode == 0 else Kp // 16
+    box = (Kp // 2 if mode == 0 else nt // 2) * 16 * 8
+    half = boxes * box
+    w_off = 256
+    st_off = (w_off + (dwt * kst * mt * 2048 if res else 0) + 127) & ~127
+    stages = min(8, (_SMEM_LIMIT - st_off - 2 * half - 1024) // stage)
+    raw_off = st_off + stages * stage
+    ys = L << log_mblocks
+    return {"nt": nt, "resident": res, "Kp": Kp, "mt": mt, "log_mblocks": log_mblocks,
+            "log_ntiles": log_ntiles, "items": items, "grid_x": max(1, min(items, sms // ys)),
+            "grid_y": ys, "plane_bytes": plane, "stage_bytes": stage, "boxes": boxes,
+            "box_bytes": box, "raw_half": half, "w_off": w_off, "st_off": st_off,
+            "stages": stages, "raw_off": raw_off, "smem": raw_off + 2 * half + 1024}
+
+
+def ntt_mxu_geometry(K: int, n: int, R: int, L: int, dwt: int, dxt: int, mode: int,
+                     sms: int = 132) -> dict:
+    """The launch of kernel ntt_mxu for a pass that contracts K over n
+    columns on R rows of L limbs: 32 data columns a stage with W's digit
+    planes resident in shared memory up to K = 128, else 16 with W's
+    fragments from device memory (:func:`ntt_mxu_layout`; 16 columns with W
+    resident measured slower, port_tools/ntt_mxu_variants.py).  sms: the
+    card's SMs."""
+    return ntt_mxu_layout(32 if K <= 128 else 16, K, n, R, L, dwt, dxt, mode, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_geometry(K, n, R, L, dwt, dxt, mode, sms) -> np.ndarray:
+    g = ntt_mxu_geometry(K, n, R, L, dwt, dxt, mode, sms)
+    return np.array([g[f] for f in GEOM_FIELDS], dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the kernel sums five planes (40 bits of shift) into an int64 partial
+# before it folds them into a limb's running residue, three groups for the
+# at most 15 planes
+FOLD_PLANES = 5
+FOLD_GROUPS = 3
+# |partial| < 7 * 512 * 2^14 * 2^32 * (1 + 2^-8 + ...) < 2^58
+FOLD_BOUND = 1 << 58
+
+
+def fold_constants(moduli) -> np.ndarray:
+    """The by-value constants of the kernel's fold, u64 [5L]: each limb's
+    bias (the least multiple of p at or above 2^58, which makes a group's
+    partial non-negative below 2^64), then for g = 1, 2 the value
+    w = 2^(40 g) mod p and its Shoup constant floor(w 2^64 / p) (the groups
+    of planes 5-9 and 10-14).  The residue of group g's partial times
+    2^(40 g) mod p is a Shoup product by them, canonical (w < p)."""
+    ps = [int(v) for v in np.asarray(moduli, dtype=np.uint64).reshape(-1)]
+    rows = [[-(-FOLD_BOUND // q) * q for q in ps]]
+    for g in range(1, FOLD_GROUPS):
+        w = [pow(2, 8 * FOLD_PLANES * g, q) for q in ps]
+        rows += [w, [(wl << 64) // q for wl, q in zip(w, ps)]]
+    return np.array([v for row in rows for v in row], dtype=np.uint64)
+
+
+def _host_counts(w_dig, tables: MxuNttTables) -> np.ndarray:
+    """The counts as the int64 [2L] host array the kernel reads (the weight
+    counts, then the data counts), kept on the tables so that its pointer
+    stays valid while the tables live."""
+    cache = tables.__dict__.setdefault("_host_counts", {})
+    key = limb_counts(w_dig, tables)
+    if key not in cache:
+        cache[key] = np.array(key[0] + key[1], dtype=np.int64)
+    return cache[key]
+
+
 def mxu_pass(x, w_dig, tables: MxuNttTables, contract_x: str, twist=None):
     """One modular matmul pass of the four-step transform (kernel
     ``ntt_mxu``): out = W x (contract_x 'A', the data's N1 axis) or x W^T
@@ -370,15 +529,17 @@ def mxu_pass(x, w_dig, tables: MxuNttTables, contract_x: str, twist=None):
     if x.dim() < 3 or tuple(x.shape[-3:]) != (L, n1, n2):
         raise ValueError(f"ntt_mxu: expected [..., {L}, {n1}, {n2}], got {tuple(x.shape)}")
     side = n1 if contract_x == "A" else n2
+    other = n2 if contract_x == "A" else n1
     dw, dx = tables.ndig_w, tables.ndig_x
     if tuple(w_dig.shape) != (L, dw, side, side):
         raise ValueError(f"ntt_mxu: digit planes {tuple(w_dig.shape)} for pass {contract_x}")
-    if dw not in KERNEL_DW or dx not in (dw, dw + 1):
-        raise ValueError(f"ntt_mxu kernel: {dw} weight and {dx} data digits are outside "
-                         f"its instantiations (2-7, and DW or DW + 1)")
+    if dw > KERNEL_DW_MAX or dx > KERNEL_DX_MAX or L > MXU_MAX_L or side > 512 or other < 2:
+        raise ValueError(f"ntt_mxu kernel: {dw} weight and {dx} data digits on {L} limbs, K = "
+                         f"{side} over {other} columns are outside what it takes (at most 7, 8, "
+                         f"{MXU_MAX_L} and 512, at least 2 columns)")
     cuda.check(x, "ntt_mxu input")
     cuda.check(w_dig, "ntt_mxu digit planes", dtype=torch.int8)
-    consts = [tables.modulus, tables.ratio0, tables.ratio1, tables.neg_offset]
+    consts = [tables.modulus, tables.ratio1]
     if twist is not None:
         consts += list(twist)
         if any(tuple(t.shape) != (L, n1, n2) for t in twist):
@@ -388,11 +549,16 @@ def mxu_pass(x, w_dig, tables: MxuNttTables, contract_x: str, twist=None):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    if any(t.data_ptr() % 16 for t in [x, out] + list(twist or ())):
+        raise ValueError("ntt_mxu: the data, the output and the twist must be 16-byte aligned")
     tw, tws = twist if twist is not None else (None, None)
+    fold = cuda.host_memo((tables.modulus,), fold_constants)
+    R, mode = x.numel() // (n1 * n2), 0 if contract_x == "A" else 1
+    geom = _host_geometry(side, other, R, L, dw, dx, mode, _sms(x.device.index or 0))
     cuda.call("ntt_mxu", cuda.ptr(out), cuda.ptr(x), cuda.ptr(w_dig), cuda.ptr(tw),
-              cuda.ptr(tws), *(cuda.ptr(t) for t in consts[:4]),
-              x.numel() // (n1 * n2), L, side, n2 if contract_x == "A" else n1,
-              0 if contract_x == "A" else 1, dw, dx)
+              cuda.ptr(tws), cuda.ptr(tables.modulus), cuda.ptr(tables.ratio1), fold.ctypes.data,
+              _host_counts(w_dig, tables).ctypes.data, geom.ctypes.data, R, L, side, other, mode,
+              dw, dx)
     return out
 
 

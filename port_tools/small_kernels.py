@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The small, launch-bound kernels timed at their callers' shapes: mod_raise
-(K8) and negacyclic (K9), with infty_norm (K10) and elementwise reduce64
-(K4) as controls.
+(K8), negacyclic (K9) and infty_norm (K10), with elementwise reduce64 (K4)
+as a control.
 
     python3 port_tools/small_kernels.py [--repo DIR] [--sweep]
 
@@ -13,28 +13,42 @@ bits, 63 of 50).  K9 at ex1's ring (bfv_default(4096)'s first two primes,
 [2, 2, 4096]): mono_mul by the scalar 4 at x^0 (ex1's multiply_plain by
 "4"), by a per-limb coefficient p - 1 and 2p - 1, and the shift by N + 3;
 at ex3's ring (N=8192, CoeffModulus.create(8192, [50, 30, 30, 50, 50]),
-[2, 5, 8192]): mono_mul by 4 at x^(N+3) and the shift by N + 3.  K10 and
-K4 reduce64 on ex1's shape.  Inputs from np.random.default_rng(0) below
-their moduli, with K8's boundary residues 0, q0/2, q0/2 + 1 and q0 - 1
-planted.
+[2, 5, 8192]): mono_mul by 4 at x^(N+3) and the shift by N + 3.  K10 on
+ex1's shape and on bench.py's [128, 2, 4, 8192] (the fused step's
+ciphertext batch, CoeffModulus.create(8192, [50, 40, 40, 50]): 67 MB, a
+bytes-bound call); K4 reduce64 on ex1's shape.  Inputs from
+np.random.default_rng(0) below their moduli, with K8's boundary residues
+0, q0/2, q0/2 + 1 and q0 - 1 planted.
 
 Each call is held to its plain version on the card (max_abs_err) and
 timed with CUDA events as chip_smoke.py times its kernels
 (chip_smoke.event_ms: 20 launches behind a device-side sleep), three times,
 the calls in turn round by round, and the plain version once; beside it
 the launch floor, an empty
-kernel (gst_empty_launch) at the call's own grid (CTAs x threads).  The
-grid is the one the timed tree launches: its host geometry
-(ops/modraise.py mod_raise_geometry, ops/dyadic.py negacyclic_geometry)
-where it has one, else the grid of 256-thread CTAs, one thread an input or
-output coefficient, that K8 and K9 launched before them (K10: a CTA of 256
-a row; K4: the grid of csrc/elementwise.cu).
+kernel (gst_empty_launch) at the call's own grid (CTAs x threads), and for
+a call launched in clusters an empty kernel in the same clusters
+(gst_empty_cluster_launch of this checkout's csrc/infty_norm.cu, built
+into build/small_kernels/).  The grid is the one the timed tree launches:
+its host geometry (ops/modraise.py mod_raise_geometry, ops/dyadic.py
+negacyclic_geometry, infty_norm_geometry) where it has one, else the grid
+of 256-thread CTAs, one thread an input or output coefficient, that K8 and
+K9 launched before them (K10: a CTA of 256 a row in the trees before its
+cluster geometry; K4: the grid of csrc/elementwise.cu).
 
 --repo DIR imports the port from another checkout (a parent tree unpacked
 with git archive), whose wrappers take the same arguments: run this script
 once per tree in one call to compare two trees on one card.
---sweep also times K8's and K9's geometry alternatives at each shape (K8:
-64-256 threads a CTA, 1 to L limbs a thread; K9: 64-256 threads a CTA), a
+--mxu also times K12 ntt_mxu's transforms (ops/ntt_mxu.py, two launches
+each) at tools/bench_ntt_mxu.py's two shapes (N=16384 on [50, 40, 40, 40,
+40, 50] and N=8192 on [50, 40, 40, 50], batch 128 x 2, inputs from
+default_rng(0)), forward and inverse, each held to K1's transform (and
+through it to the plain version, which the card tests hold K1 to) and
+timed like the calls above beside K1's, one JSON line a shape and
+direction, with the least time of its int8 MACs at each limb's own digit
+pairs and at the tables' (989.5e12 MACs/s) and of its bytes.
+--sweep also times K8's, K9's and K10's geometry alternatives at each shape
+(K8: 64-256 threads a CTA, 1 to L limbs a thread; K9: 64-256 threads a CTA;
+K10 at ex1's shape: 128 or 256 threads, a row over 1, 2, 4 or 8 CTAs), a
 shape's alternatives on the same
 inputs in turn, three rounds of 50 launches, one JSON line each; the tree
 must have the geometry functions.
@@ -61,7 +75,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=HERE, help="the checkout whose port is timed")
     ap.add_argument("--sweep", action="store_true",
-                    help="time K8's and K9's geometry alternatives too")
+                    help="time K8's, K9's and K10's geometry alternatives too")
+    ap.add_argument("--mxu", action="store_true",
+                    help="time K12's four-step transforms against K1 too")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -78,7 +94,7 @@ def main() -> int:
     from gemini_seal_tpu_torch.ops.dyadic import LimbConstants
 
     sys.path.remove(os.path.abspath(args.repo))
-    from chip_smoke import event_ms, launch_floor, nvidia_smi_line
+    from chip_smoke import event_ms, launch_floor, launch_floor_cluster, nvidia_smi_line
 
     card = nvidia_smi_line()
     print(card, flush=True)
@@ -86,6 +102,14 @@ def main() -> int:
                       "sweep": args.sweep}), flush=True)
     report = cuda.build()
     floor_lib = report["scale_round"]["path"]
+    # the cluster launch floor comes from this checkout's K10 source, which
+    # the timed tree (--repo) may not have
+    cluster_lib = os.path.join(HERE, "build", "small_kernels", "empty_cluster.so")
+    os.makedirs(os.path.dirname(cluster_lib), exist_ok=True)
+    import subprocess
+    subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", cluster_lib,
+                    os.path.join(HERE, "gemini_seal_tpu_torch", "csrc", "infty_norm.cu")],
+                   check=True, capture_output=True, timeout=600)
     rng = np.random.default_rng(0)
     dev = "cuda"
     has_geometry = hasattr(modraise, "mod_raise_geometry")
@@ -174,13 +198,28 @@ def main() -> int:
                 "coefficient": ("per-limb" if torch.is_tensor(coeff) else coeff),
                 "geometry": geo, "grid": grid}, fn
 
-    # ---- controls on ex1's shape
+    # ---- K10 on ex1's shape and bench.py's batch
+    bench = k9_ring(chain(8192, [50, 40, 40, 50]))
+
+    def k10_cases():
+        for label, (limbs, mods), lead, n in (("ex1 infty_norm", ex1, (2,), 4096),
+                                              ("bench.py infty_norm", bench, (128, 2), 8192)):
+            a = res(mods, lead, n)
+            R, L = a.numel() // (len(mods) * n), len(mods)
+            if hasattr(dyadic, "infty_norm_geometry"):
+                geo = dyadic.infty_norm_geometry(n, R * L)
+                grid = ((R << geo["log_tiles"]) * L, geo["threads"], 1 << geo["log_tiles"])
+            else:
+                geo, grid = None, (R * L, 256, 1)
+            yield ({"kernel": "infty_norm", "label": label, "shape": list(a.shape),
+                    "geometry": geo, "grid": grid},
+                   lambda a=a, limbs=limbs: dyadic.poly_infty_norm(a, limbs))
+
+    # ---- control on ex1's shape
     def control_cases():
         limbs, mods = ex1
         a = res(mods, (2,), 4096)
         wide = a + res(mods, (2,), 4096)
-        yield ({"kernel": "infty_norm", "label": "ex1 infty_norm", "shape": list(a.shape),
-                "grid": (4, 256)}, lambda: dyadic.poly_infty_norm(a, limbs))
         yield ({"kernel": "elementwise:reduce64", "label": "ex1 reduce64",
                 "shape": list(a.shape), "grid": old_grid(a.numel())},
                lambda: dyadic.modulo_poly_coeffs(wide, limbs))
@@ -204,14 +243,58 @@ def main() -> int:
             for row, fn in cases:
                 row["ms"].append(event_ms(torch, fn, reps))
         for row, _ in cases:
-            blocks, threads = row["grid"]
-            floor = launch_floor(torch, cuda, floor_lib, reps, ((blocks, threads),))
-            row.update({"median_ms": statistics.median(row["ms"]),
-                        "floor_ms": floor[f"{blocks}x{threads}"], "card": card})
+            blocks, threads = row["grid"][:2]
+            cluster = row["grid"][2] if len(row["grid"]) > 2 else 1
+            if cluster > 1:
+                floor = launch_floor_cluster(torch, cluster_lib, reps,
+                                             ((blocks, threads, cluster),))
+                floor_ms = floor[f"{blocks}x{threads}/{cluster}"]
+            else:
+                floor_ms = launch_floor(torch, cuda, floor_lib, reps,
+                                        ((blocks, threads),))[f"{blocks}x{threads}"]
+            row.update({"median_ms": statistics.median(row["ms"]), "floor_ms": floor_ms,
+                        "card": card})
             print(json.dumps(row), flush=True)
 
     run([k8_case(*s) for s in k8_shapes] + [k9_case(*s) for s in k9_shapes]
-        + list(control_cases()), REPS)
+        + list(k10_cases()) + list(control_cases()), REPS)
+
+    if args.mxu:
+        from gemini_seal_tpu_torch.ops import ntt as ntt_ops
+        from gemini_seal_tpu_torch.ops import ntt_mxu
+
+        for n, bits in ((16384, [50, 40, 40, 40, 40, 50]), (8192, [50, 40, 40, 50])):
+            mods = chain(n, bits)
+            tabs = ntt_mxu.build_mxu_ntt_tables(n.bit_length() - 1, mods, device=dev)
+            k1 = ntt_ops.build_ntt_tables(n.bit_length() - 1, mods).to(dev)
+            xm = to_tensor(np.stack([np.random.default_rng(0).integers(0, p, (128, 2, n),
+                                                                       dtype=np.uint64)
+                                     for p in mods], axis=2), dev)
+            rows_m = xm.numel() // n
+            per_pair = (rows_m // len(mods)) * n * (tabs.n1 + tabs.n2)
+            for d in ("forward", "inverse"):
+                mxu_fn = getattr(ntt_mxu, f"ntt_{d}_mxu")
+                k1_fn = getattr(ntt_ops, f"ntt_{d}")
+                fns = {"mxu": lambda: mxu_fn(xm, tabs), "k1": lambda: k1_fn(xm, k1)}
+                equal = bool(torch.equal(fns["mxu"](), fns["k1"]()))
+                ok &= equal
+                times = {k: [] for k in fns}
+                for _ in range(ROUNDS):
+                    for k, fn in fns.items():
+                        times[k].append(event_ms(torch, fn, REPS))
+                col = "fwd_col" if d == "forward" else "inv_col"
+                pairs = {"per_limb": sum(a * b for a, b in zip(
+                             getattr(tabs, "limb_ndig_w", {}).get(col, [tabs.ndig_w] * len(mods)),
+                             getattr(tabs, "limb_ndig_x", [tabs.ndig_x] * len(mods)))),
+                         "tables": tabs.ndig_w * tabs.ndig_x * len(mods)}
+                print(json.dumps({
+                    "kernel": "ntt_mxu", "label": f"n{n} {d}", "shape": list(xm.shape),
+                    "equal_to_k1": equal, "ms": times["mxu"], "k1_ms": times["k1"],
+                    "median_ms": statistics.median(times["mxu"]),
+                    "k1_median_ms": statistics.median(times["k1"]),
+                    "bound_ms": {k: per_pair * v / 989.5e12 * 1e3 for k, v in pairs.items()},
+                    "bytes_bound_ms": 4 * xm.numel() * 8 / 3.35e12 * 1e3, "card": card}),
+                    flush=True)
 
     if args.sweep:
         picked_k8, picked_k9 = modraise.mod_raise_geometry, dyadic.negacyclic_geometry
@@ -255,6 +338,25 @@ def main() -> int:
                                       grid=((R << geo["log_tiles"]) * L, geo["threads"])),
                                  under(dyadic, "negacyclic_geometry", forced, fn0)))
                 run(alts, SWEEP_REPS)
+            dyadic.negacyclic_geometry = picked_k9
+            # K10 at ex1's shape: 128 or 256 threads, a row over 1 to 8 CTAs
+            picked_k10 = dyadic.infty_norm_geometry
+            try:
+                row0, fn0 = next(iter(k10_cases()))
+                R, L, n = row0["shape"]
+                alts = []
+                for threads, log_tiles in itertools.product((128, 256), range(4)):
+
+                    def forced(N, rows=1, threads=threads, log_tiles=log_tiles):
+                        return {"threads": threads, "log_tiles": log_tiles,
+                                "iters": -(-N // (2 * threads << log_tiles))}
+                    alts.append((dict(row0, label=row0["label"] + " (sweep)",
+                                      geometry=forced(n),
+                                      grid=((R << log_tiles) * L, threads, 1 << log_tiles)),
+                                 under(dyadic, "infty_norm_geometry", forced, fn0)))
+                run(alts, SWEEP_REPS)
+            finally:
+                dyadic.infty_norm_geometry = picked_k10
         finally:
             modraise.mod_raise_geometry, dyadic.negacyclic_geometry = picked_k8, picked_k9
     return 0 if ok else 1

@@ -1483,3 +1483,69 @@ def test_ntt_mxu_unbuilt_kernel_raises(card, monkeypatch, tmp_path):
     monkeypatch.setattr(tmx, "mxu_pass_plain", no_plain)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tmx.ntt_forward_mxu(x, mx)
+
+
+@pytest.mark.parametrize("log_n,bits", [(4, (30, 40, 50, 54)), (11, (50, 40, 54, 30)),
+                                        (13, (40, 50, 40, 50)), (15, (54, 40))])
+def test_ntt_mxu_kernel_limb_digit_counts(card, log_n, bits):
+    """Limbs of different digit counts in one launch (30, 40, 50 and
+    54-bit primes: 4 x 5, 6 x 6, 7 x 7 and 7 x 8 pairs), with K below 32
+    (N = 16: N1 = 8, N2 = 2, the zero-padded k32 step), N1 != N2 (N =
+    2048, 8192) and K = 256 (W from device memory): every pass of both
+    directions equals its plain version, which equals the plain sum over
+    the limbs' own pairs."""
+    mods, mx, k1 = _mxu(log_n, list(bits), card)
+    n = 1 << log_n
+    x = _res(np.random.default_rng(log_n + 5), mods, (3,), n, 2)
+    x[0, :, 0] = [2 * p - 1 for p in mods]
+    xt = to_tensor(x, card)
+    xr = xt.reshape(3, len(mods), mx.n1, mx.n2)
+    assert len(set(zip(mx.limb_ndig_w["fwd_col"], mx.limb_ndig_x))) > 1
+    for w, cx, tw in ((mx.fwd_col, "A", (mx.fwd_twist, mx.fwd_twist_shoup)),
+                      (mx.fwd_row, "B", None),
+                      (mx.inv_row, "B", (mx.inv_twist, mx.inv_twist_shoup)),
+                      (mx.inv_col, "A", None)):
+        got, want = _both(tmx.mxu_pass, xr, w, mx, cx, twist=tw)
+        assert torch.equal(got, want), cx
+        assert torch.equal(want, tmx.mxu_pass_plain_limbs(xr, w, mx, cx, twist=tw))
+    assert torch.equal(tmx.ntt_forward_mxu(xt, mx), tn.ntt_forward(xt, k1))
+
+
+@pytest.mark.parametrize("n", [2, 32, 1024, 4096, 8192, 65536, 131072])
+@pytest.mark.parametrize("L", [1, 3, 64])
+def test_infty_norm_kernel_tile_edges(card, n, L):
+    """K10 at its cluster geometry: the centred lift's edges 0, p >> 1,
+    (p >> 1) + 1 and p - 1 planted at the first and last coefficient of
+    every 16-byte step of every CTA's tile and at the row's ends, the row's
+    largest magnitude in different tiles in different rows; one launch,
+    equal to the plain version."""
+    from gemini_seal_tpu_torch.ops import dyadic
+
+    geo = dyadic.infty_norm_geometry(n)
+    span = 2 * geo["threads"]
+    base = [get_primes(max(n, 1024), b, 1)[0] for b in (60, 50, 40)]
+    mods = [base[li % 3] for li in range(L)]
+    limbs = LimbConstants.from_moduli(mods, card)
+    rows = 2 if L == 64 and n >= 65536 else 3
+    rng = np.random.default_rng(n * 7 + L)
+    x = _res(rng, mods, (rows,), n)
+    for li, p in enumerate(mods):
+        edges = [0, p >> 1, (p >> 1) + 1, p - 1]
+        for s, start in enumerate(range(0, n, span)):
+            x[s % rows, li, start] = edges[s % 4]
+            x[(s + 1) % rows, li, min(start + span, n) - 1] = edges[(s + 1) % 4]
+        x[0, li, -1] = p >> 1
+    before = cuda.LAUNCHES["infty_norm"]
+    got, want = _both(dyadic.poly_infty_norm, to_tensor(x, card), limbs)
+    assert cuda.LAUNCHES["infty_norm"] == before + 1
+    assert got.shape == (rows, L) and torch.equal(got, want)
+
+
+def test_infty_norm_kernel_refuses_more_limbs_than_a_launch_takes(card):
+    from gemini_seal_tpu_torch.ops import dyadic
+
+    mods = get_primes(1024, 40, 65)
+    limbs = LimbConstants.from_moduli(mods, card)
+    x = to_tensor(_res(np.random.default_rng(0), mods, (1,), 64), card)
+    with pytest.raises(ValueError, match="65 limbs"):
+        dyadic.poly_infty_norm(x, limbs)
