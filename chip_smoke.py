@@ -5,7 +5,7 @@
     python3 chip_smoke.py --cpu-rehearsal  # small rings on the CPU, plain versions
     python3 chip_smoke.py --nccl-only      # on four cards: only the NCCL phase
 
-Twenty-four paths run, each driven once with every launch counter set to 0 just
+Thirty paths run, each driven once with every launch counter set to 0 just
 before it and read just after it.  Three are CKKS, on bench.py's ring
 (N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
 seed range(71, 79), scale 2^40):
@@ -124,6 +124,28 @@ turns and prints poly-limb NTTs/s, their ratio, device ms per transform
 from CUDA events, the busy share and the table-build seconds (``ntt_mxu``
 lines).
 
+Six are the encrypted model zoo of models/pipelines.py at their sources'
+rings, batch 16 (keygen in each source's order, parms seed range(8)):
+
+- dense_layer8x8_n8192: examples/ex9's fused layer (M, b, x from
+  default_rng(42), dim 8) at dense8x8's ring, square activation, on the
+  hoisted and on the BSGS matvec; every slot within 1e-3 of (M x + b)^2;
+- cnn16x16_n4096: bench_all.py's cnn cell (bench_all.py:341-398: N=4096,
+  [50, 40 x 6, 50], a 3x3 conv + square, a 16-diagonal dense + square, a
+  10-diagonal readout, BSGS); within 1e-2 of the numpy forward pass, and
+  batch row 0 with the JAX package's digests (CNN16X16_N4096);
+- bfv_matvec8x8_n8192: the hoisted BFV matvec of a seeded 8x8 integer
+  matrix at config 2's ring; every slot exactly (M x) mod t;
+- logreg_train_m64_f16_n8192: bench_all.py's train cell
+  (bench_all.py:401-442), one encrypted gradient-descent iteration of m=64
+  samples of F=16 features; within 1e-2 of the cleartext iteration, at the
+  input scale;
+- logreg_f16_n8192: bench_all.py's logreg cell (bench_all.py:689-723), the
+  sigmoid head of 16 weights; slot 0 within 1e-2 of sigma3(w.x + b);
+- inverse_ex14_n256: examples/ex14's softmax at its ring (N=256, [50, 40
+  x 11, 50]); the step is build_ckks_inverse's four Goldschmidt iterations;
+  within ex14's 2e-2 of softmax(x).
+
 With four cards an NCCL phase runs the csp4 and limb4 steps, one process
 per card, against the single-card step; with fewer it says so.
 
@@ -148,7 +170,7 @@ The script
    grids, among them K8's at the N=4096 refresh, K9's at ex1's
    multiply_plain and K10's at ex1's [2, 2, 4096] (in its clusters of
    eight CTAs, and as a plain launch);
-3. drives the twenty-four paths; as each kernel call happens it
+3. drives the thirty paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
    launches of the check are taken off the counters), and times each call
@@ -161,8 +183,8 @@ The script
    beside torch.amax, for ``ntt_mxu`` beside its digit-pair products as
    torch._int_mm calls; ntt_mxu's int8 MACs are each limb's own digit
    pairs, which the kernel computes, with the tables' 49-pair count and
-   its bound beside them); in the refresh and the per-op paths, whose steps
-   repeat call shapes, each distinct call is timed once;
+   its bound beside them); in the refresh, the per-op paths and the model
+   zoo's, whose steps repeat call shapes, each distinct call is timed once;
    ``scale_round``, which runs in encryption and decryption only, is timed
    at those calls; a kernel's modes (the large-ring NTT, one cluster
    launch a transform, and the sub_row NTT, the signed and paired Galois
@@ -172,8 +194,9 @@ The script
    against the port's plain path on the card, bit for bit, and each one's
    decode (with BFV rotate_columns);
 6. times each step at its full batch (ops/s or rotations/s, and the NTT
-   rates of configs 4 and N=65536), the two key forms of each hoisted
-   rotation in turns, and profiles each (device time by kernel, device
+   rates of configs 4 and N=65536; ex14's reciprocal is checked, not
+   timed), the two key forms of each hoisted rotation in turns, and
+   profiles each (device time by kernel, device
    busy share), with the recorder removed; then each op of the per-op API
    (median host ms over 20 waited calls, device ms and busy share) and
    ex8's three tiers per ciphertext; the four-step int8 NTT against K1 in
@@ -194,6 +217,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 3.35 TB/s; 32-bit integer
 # multiply-adds at 64 lanes per SM (half the 128 FP32 lanes behind the
@@ -250,10 +274,27 @@ PATH_KERNELS = {
     "ntt_mxu_n16384": ("ntt_mxu",),
     "ntt_mxu_n8192": ("ntt_mxu",),
 }
+# the model zoo's paths, added apart: in the literal above they would deepen
+# the module's frame, beneath every timed call (see main()'s zoo_paths)
+PATH_KERNELS.update({
+    "dense_layer8x8_n8192": ("ntt", "tensor_product", "contract", "elementwise", "galois",
+                             "galois:paired"),
+    "cnn16x16_n4096": ("ntt", "tensor_product", "contract", "elementwise", "galois",
+                       "galois:paired"),
+    "bfv_matvec8x8_n8192": ("ntt", "contract", "elementwise", "galois"),
+    "logreg_train_m64_f16_n8192": ("ntt", "tensor_product", "contract", "elementwise",
+                                   "galois", "contract:broadcast"),
+    "logreg_f16_n8192": ("ntt", "tensor_product", "contract", "elementwise", "galois",
+                         "contract:broadcast"),
+    "inverse_ex14_n256": ("ntt", "tensor_product", "contract", "elementwise",
+                          "contract:broadcast"),
+})
 # paths whose step repeats a call shape many times: each distinct call is
 # timed once and its time counted for every call of that shape
 TIME_ONCE = ("bootstrap_n4096", "per_op_bfv_n4096", "per_op_bfv_n8192_levels", "per_op_ckks",
-             "device_evaluator_n8192")
+             "device_evaluator_n8192", "dense_layer8x8_n8192", "cnn16x16_n4096",
+             "bfv_matvec8x8_n8192", "logreg_train_m64_f16_n8192", "logreg_f16_n8192",
+             "inverse_ex14_n256")
 
 # bench_all.py's bootstrap cell (bench_all.py:445-508) run by the JAX package
 # eagerly on the CPU (tests/test_torch_bootstrap.py::test_bench_all_cell_digests
@@ -266,6 +307,19 @@ BOOTSTRAP_N4096 = {
     "rotation_steps": 87,
     "levels_restored": 3,
     "levels_consumed": 18,
+}
+# bench_all.py's cnn cell (bench_all.py:341-398: N=4096, [50, 40 x 6, 50], a
+# 3x3 conv + square, a 16-diagonal dense + square and a 10-diagonal readout on
+# the BSGS matvec) run by the JAX package eagerly on the CPU
+# (tests/test_torch_zoo.py::test_cnn16x16_digests recomputes these): the
+# sha256 of the input's and of the output's u64 residues (one ciphertext),
+# the max decode error against the numpy forward pass over the 256 pixels,
+# and the rotation-key steps of each layer
+CNN16X16_N4096 = {
+    "input_sha256": "37726c33dd91e359a5ebf9f3abea7baaece56799f566b0e8143f8ddeec7a45d3",
+    "output_sha256": "c143cc5b40e3a81c8c4a08b958bc122e00e9bb3e5bc9498eacc313b6485eecbf",
+    "max_err": 3.776321932024915e-09,
+    "rot_steps_lengths": [8, 6, 5],
 }
 # The SEAL per-op API's flows run by the JAX package's host Evaluator on the
 # CPU (parms seed range(8)): the sha256 of the final ciphertext's u64
@@ -289,7 +343,30 @@ PHASE_KERNELS = {"encode_encrypt": ("scale_round",), "decrypt_decode": ("scale_r
 MODE_ROWS = ("behz", "scale_round")
 
 
+def conv_same(img, k):
+    """SAME zero-padded 2-D convolution (correlation) of img by k, numpy."""
+    import numpy as np
+
+    h, w = img.shape
+    kh, kw = k.shape
+    out = np.zeros((h, w))
+    for dy in range(-(kh // 2), kh // 2 + 1):
+        for dx in range(-(kw // 2), kw // 2 + 1):
+            src = np.zeros((h, w))
+            rs, cs = slice(max(0, -dy), min(h, h - dy)), slice(max(0, -dx), min(w, w - dx))
+            src[rs, cs] = img[max(0, dy):min(h, h + dy), max(0, dx):min(w, w + dx)]
+            out += k[dy + kh // 2, dx + kw // 2] * src
+    return out
+
+
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries the script's elapsed
+    seconds, so that a run's time can be read phase by phase."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _START, 2)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2047,13 +2124,13 @@ def main(argv=None) -> int:
                 T.Decryptor(c, k.secret_key, device=device), T.Evaluator(c, device=device),
                 T.CKKSEncoder(c, device=device))
 
-    ctx_c2, kg_c2, enc_c2, dec_c2, ev_c2, cod_c2 = ckks_example(n_c2, [40, 30, 30], 1,
+    _, kg_c2, enc_c2, dec_c2, ev_c2, cod_c2 = ckks_example(n_c2, [40, 30, 30], 1,
                                                                   T.SecLevelType.tc128)
     rk_c2 = kg_c2.relin_keys()
-    ctx_c4, kg_c4, enc_c4, dec_c4, ev_c4, cod_c4 = ckks_example(
+    _, kg_c4, enc_c4, dec_c4, ev_c4, cod_c4 = ckks_example(
         n_c8, [55, 40, 40, 50, 50, 50], 3, T.SecLevelType.none)
     rk_c4 = kg_c4.relin_keys()
-    ctx_c5, kg_c5, enc_c5, dec_c5, ev_c5, cod_c5 = ckks_example(
+    _, kg_c5, enc_c5, dec_c5, ev_c5, cod_c5 = ckks_example(
         n_c8, [40, 40, 40, 40, 50, 50], 1, T.SecLevelType.none)
     gk_c5 = kg_c5.galois_keys()
     keygen_done("per_op_ckks", t0)
@@ -2447,6 +2524,328 @@ def main(argv=None) -> int:
              [50, 40] if rehearsal else [50, 40, 40, 40, 40, 50])
     mxu_path("ntt_mxu_n8192", 1024 if rehearsal else 8192,
              [50, 40] if rehearsal else [50, 40, 40, 50])
+
+    # 3y. the encrypted model zoo, driven from a function of its own, whose
+    # names live in its frame and not in main()'s.  main()'s frame and the
+    # module's keep the sizes they had before the zoo joined (606 names and
+    # a stack of 32; a stack of 10), so the frames of every path timed below
+    # sit where they did: CPython keeps frames in 16 KB chunks, and a larger
+    # frame beneath the refresh moved its hot calls across a chunk boundary
+    # and cost it 1.7-2x its host time (PERF.md section 6)
+    def zoo_paths():
+        # 3y. the encrypted model zoo: models/pipelines.py's dense layer, CNN, BFV
+        # matvec, logistic-regression head and training step and the Goldschmidt
+        # reciprocal, each at its source's ring, batch 16 (the rehearsal: 2)
+        zb = 2 if rehearsal else 16
+
+        # dense_layer8x8_n8192: examples/ex9's fused layer (M, b, x from
+        # default_rng(42), dim 8) at dense8x8's ring, square activation, with the
+        # hoisted matvec and with the BSGS matvec
+        t0 = begin("dense_layer8x8_n8192")
+        set_phase("build")
+        rng_dl = np.random.default_rng(42)
+        M_dl = rng_dl.uniform(-0.5, 0.5, size=(8, 8))
+        b_dl = rng_dl.uniform(-0.2, 0.2, size=8)
+        x_dl = rng_dl.uniform(-1, 1, size=8)
+        diag_dl = {d: [M_dl[i % 8, (i + d) % 8] for i in range(slots8)] for d in range(8)}
+        bias_dl = [b_dl[i % 8] for i in range(slots8)]
+        layer_dl, pid_dl, scale_dl = T.build_ckks_dense_layer(ctx8, diag_dl, bias_dl, 2.0 ** 40,
+                                                              encoder8, device=device)
+        layer_dlb, pid_dlb, scale_dlb = T.build_ckks_dense_layer(ctx8, diag_dl, bias_dl, 2.0 ** 40,
+                                                                 encoder8, bsgs=True, device=device)
+        t1 = time.perf_counter()
+        set_phase("keygen")
+        rk_dl = kg8.relin_keys().stacked(2)
+        elts_dlb = tool8.get_elts_from_steps(layer_dlb.rot_steps)
+        gk_dlb = kg8.galois_keys(elts_dlb).stacked(*elts_dlb)
+        keygen_done("dense_layer8x8_n8192", t1)
+        set_phase("encode_encrypt")
+        ct_dl = enc8.encrypt(encoder8.encode([x_dl[i % 8] for i in range(slots8)], 2.0 ** 40))
+        a_dl = ct_dl.data.expand((zb,) + tuple(ct_dl.data.shape)).contiguous()
+        set_phase("step")
+        out_dl, per_step_dl = count_step(layer_dl, a_dl, gk8, rk_dl)         # steps 1..7
+        out_dlb, per_step_dlb = count_step(layer_dlb, a_dl, gk_dlb, rk_dl)
+        set_phase("decrypt_decode")
+        want_dl = np.asarray([(M_dl @ x_dl + b_dl)[i % 8] ** 2 for i in range(slots8)])
+
+        def dense_dl_err(o, b):
+            return max_err(encoder8.decode(dec8.decrypt(T.Ciphertext(o[b].contiguous(), pid_dl,
+                                                                     True, scale_dl))), want_dl)
+
+        err_dl = max(dense_dl_err(o, b) for o in (out_dl, out_dlb) for b in (0, zb - 1))
+        end("dense_layer8x8_n8192", t0, [per_step_dl, per_step_dlb], out_shape=list(out_dl.shape),
+            rot_steps={"hoisted": layer_dl.rot_steps, "bsgs": layer_dlb.rot_steps},
+            max_abs_decode_err=err_dl)
+        if not (err_dl < 1e-3 and (pid_dl, scale_dl) == (pid_dlb, scale_dlb)):
+            raise AssertionError(f"dense_layer8x8_n8192 decodes {err_dl} from (M x + b)^2")
+
+        # cnn16x16_n4096: bench_all.py's cnn cell (bench_all.py:341-398), keygen in
+        # its order; row 0 must have the JAX package's digests (CNN16X16_N4096)
+        n_cn = 1024 if rehearsal else 4096
+        t0 = begin("cnn16x16_n4096")
+        set_phase("keygen")
+        ctx_cn, kg_cn, cod_cn, enc_cn, dec_cn = ckks_context(n_cn, [50] + [40] * 6 + [50])
+        rk_cn = kg_cn.relin_keys().stacked(2)
+        t1 = time.perf_counter()
+        set_phase("build")
+        rng_cn = np.random.default_rng(2)
+        slots_cn, hw_cn = cod_cn.slot_count, 256
+        kern_cn = rng_cn.uniform(-0.4, 0.4, size=(3, 3))
+        M_cn = np.zeros((hw_cn, hw_cn))
+        for d in range(16):
+            for i in range(hw_cn):
+                M_cn[i, (i + d) % hw_cn] = rng_cn.uniform(-0.15, 0.15)
+        R_cn = np.zeros((hw_cn, hw_cn))
+        for d in range(10):
+            for i in range(hw_cn):
+                R_cn[i, (i + d) % hw_cn] = rng_cn.uniform(-0.3, 0.3)
+        dense_cn = [({d: [M_cn[i % hw_cn, (i + d) % hw_cn] for i in range(slots_cn)]
+                      for d in range(16)}, [0.0] * slots_cn, "square"),
+                    ({d: [R_cn[i % hw_cn, (i + d) % hw_cn] for i in range(slots_cn)]
+                      for d in range(10)}, [0.0] * slots_cn, None)]
+        cnn, pid_cn, scale_cn = T.build_ckks_cnn(ctx_cn, [(kern_cn, None, "square")], dense_cn, 16,
+                                                 16, 2.0 ** 40, cod_cn, bsgs=True, device=device)
+        build_cn = time.perf_counter() - t1
+        set_phase("keygen")
+        tool_cn = ctx_cn.first_context_data().galois_tool
+        gk_cn = []
+        for layer_steps in cnn.rot_steps:
+            elts = tool_cn.get_elts_from_steps(layer_steps)
+            gk_cn.append(kg_cn.galois_keys(elts).stacked(*elts))
+        keygen_s["cnn16x16_n4096"] = time.perf_counter() - t0 - build_cn
+        emit({"phase": "keygen", "path": "cnn16x16_n4096", "seconds": keygen_s["cnn16x16_n4096"],
+              "build_seconds": build_cn})
+        set_phase("encode_encrypt")
+        img_cn = [rng_cn.uniform(0, 1) for _ in range(hw_cn)]
+        ct_cn = enc_cn.encrypt(cod_cn.encode([img_cn[i % hw_cn] for i in range(slots_cn)],
+                                             2.0 ** 40))
+        a_cn = ct_cn.data.expand((zb,) + tuple(ct_cn.data.shape)).contiguous()
+        set_phase("step")
+        out_cn, per_step_cn = count_step(cnn, a_cn, gk_cn, rk_cn)
+        set_phase("decrypt_decode")
+        want_cn = R_cn @ ((M_cn @ (conv_same(np.reshape(img_cn, (16, 16)), kern_cn).reshape(-1)
+                                   ** 2)) ** 2)
+
+        def cnn_err(o):
+            got = np.asarray(cod_cn.decode(dec_cn.decrypt(T.Ciphertext(o.contiguous(), pid_cn, True,
+                                                                      scale_cn))))
+            return float(np.abs(got[:hw_cn] - want_cn).max())
+
+        err_cn = cnn_err(out_cn[0])
+        rows_equal_cn = bool(torch.equal(out_cn[0], out_cn[-1]))
+        digests_cn = {"input_sha256": hashlib.sha256(to_numpy(ct_cn.data).tobytes()).hexdigest(),
+                      "output_sha256": hashlib.sha256(to_numpy(out_cn[0]).tobytes()).hexdigest()}
+        steps_cn = [len(s) for s in cnn.rot_steps]
+        end("cnn16x16_n4096", t0, per_step_cn, out_shape=list(out_cn.shape), n=n_cn,
+            rot_steps=cnn.rot_steps, max_abs_decode_err=err_cn, rows_equal=rows_equal_cn,
+            **digests_cn)
+        if not (err_cn < 1e-2 and rows_equal_cn):
+            raise AssertionError(f"cnn16x16_n4096 decodes {err_cn} from the numpy forward pass")
+        want_cn_d = CNN16X16_N4096
+        if not rehearsal and (digests_cn["input_sha256"] != want_cn_d["input_sha256"]
+                              or digests_cn["output_sha256"] != want_cn_d["output_sha256"]
+                              or err_cn != want_cn_d["max_err"]
+                              or steps_cn != want_cn_d["rot_steps_lengths"]):
+            raise AssertionError(f"cnn16x16_n4096 differs from the JAX package's: {digests_cn}, "
+                                 f"max_err {err_cn}, rotation steps {steps_cn}")
+
+        # bfv_matvec8x8_n8192: the hoisted BFV matvec of a seeded 8x8 integer
+        # matrix at config 2's ring (bfv_default(8192), tc128), batch 16; every
+        # slot of both rows decodes to (M x)[i % 8] mod t exactly
+        t0 = begin("bfv_matvec8x8_n8192")
+        set_phase("keygen")
+        rng_bm = np.random.default_rng(2029)
+        M_bm = rng_bm.integers(0, 1024, size=(8, 8))
+        x_bm = rng_bm.integers(0, 1024, size=8)
+        elts_bm = tool2.get_elts_from_steps(list(range(1, 8)))
+        gk_bm = kg2.galois_keys(elts_bm).stacked(*elts_bm)
+        keygen_done("bfv_matvec8x8_n8192", t0)
+        set_phase("encode_encrypt")
+        ct_bm = enc2.encrypt(be2.encode([int(x_bm[i % 8]) for i in range(n2)]))
+        a_bm = ct_bm.data.expand((zb,) + tuple(ct_bm.data.shape)).contiguous()
+        set_phase("step")
+        bmv = T.build_bfv_matvec(ctx2, {d: [int(M_bm[i % 8, (i + d) % 8]) for i in range(n2)]
+                                        for d in range(8)}, be2, device=device)
+        out_bm, per_step_bm = count_step(bmv, a_bm, gk_bm)
+        set_phase("decrypt_decode")
+        want_bm = [int((M_bm @ x_bm)[i % 8]) % t2 for i in range(n2)]
+        exact_bm = decodes2(out_bm[0]) == want_bm and decodes2(out_bm[-1]) == want_bm
+        end("bfv_matvec8x8_n8192", t0, per_step_bm, out_shape=list(out_bm.shape),
+            decode_exact=exact_bm)
+        if not exact_bm:
+            raise AssertionError("bfv_matvec8x8_n8192 does not decode to M x mod t")
+
+        # logreg_train_m64_f16_n8192: bench_all.py's train cell
+        # (bench_all.py:401-442): one encrypted gradient-descent iteration, m=64
+        # samples of F=16 features (the rehearsal: 16 of 8 at N=1024)
+        n_lt = 1024 if rehearsal else 8192
+        m_lt, F_lt = (16, 8) if rehearsal else (64, 16)
+        t0 = begin("logreg_train_m64_f16_n8192")
+        set_phase("keygen")
+        ctx_lt, kg_lt, cod_lt, enc_lt, dec_lt = ckks_context(n_lt, [50] + [40] * 7 + [50])
+        rk_lt = kg_lt.relin_keys().stacked(2)
+        t1 = time.perf_counter()
+        set_phase("build")
+        rng_lt = np.random.default_rng(4)
+        y_lt = rng_lt.integers(0, 2, size=m_lt).astype(float)
+        train_lt, pid_lt, scale_lt, steps_lt = T.build_ckks_logreg_train_step(
+            ctx_lt, m_lt, F_lt, y_lt.tolist(), 0.1, 2.0 ** 40, cod_lt, device=device)
+        t2_lt = time.perf_counter()
+        set_phase("keygen")
+        elts_lt = ctx_lt.first_context_data().galois_tool.get_elts_from_steps(steps_lt)
+        gk_lt = kg_lt.galois_keys(elts_lt).stacked(*elts_lt)
+        keygen_s["logreg_train_m64_f16_n8192"] = time.perf_counter() - t2_lt + t1 - t0
+        emit({"phase": "keygen", "path": "logreg_train_m64_f16_n8192",
+              "seconds": keygen_s["logreg_train_m64_f16_n8192"], "build_seconds": t2_lt - t1})
+        set_phase("encode_encrypt")
+        slots_lt = cod_lt.slot_count
+        Bf_lt = 1 << int(np.ceil(np.log2(F_lt)))
+        xs_lt = np.zeros(slots_lt)
+        for i in range(m_lt):
+            xs_lt[i * Bf_lt:i * Bf_lt + F_lt] = rng_lt.uniform(-1, 1, size=F_lt)
+        ws_lt = np.zeros(slots_lt)
+        for i in range(slots_lt // Bf_lt):
+            ws_lt[i * Bf_lt:i * Bf_lt + F_lt] = rng_lt.uniform(-0.5, 0.5, size=F_lt)
+        ct_lx = enc_lt.encrypt(cod_lt.encode(xs_lt.tolist(), 2.0 ** 40))
+        ct_lw = enc_lt.encrypt(cod_lt.encode(ws_lt.tolist(), 2.0 ** 40))
+        a_lx = ct_lx.data.expand((zb,) + tuple(ct_lx.data.shape)).contiguous()
+        a_lw = ct_lw.data.expand((zb,) + tuple(ct_lw.data.shape)).contiguous()
+        set_phase("step")
+        out_lt, per_step_lt = count_step(train_lt, a_lx, a_lw, gk_lt, rk_lt)
+        set_phase("decrypt_decode")
+        # the cleartext iteration: sample i meets block i of w (bench_all.py's w
+        # differs from block to block), the gradient is summed over the m samples
+        X_lt = xs_lt.reshape(-1, Bf_lt)[:m_lt, :F_lt]
+        W_lt = ws_lt.reshape(-1, Bf_lt)[:m_lt, :F_lt]
+        z_lt = (X_lt * W_lt).sum(axis=1)
+        g_lt = X_lt.T @ (0.5 + 0.197 * z_lt - 0.004 * z_lt ** 3 - y_lt)
+        want_lt = W_lt - 0.1 * g_lt
+
+        def train_err(o):
+            got = np.asarray(cod_lt.decode(dec_lt.decrypt(T.Ciphertext(o.contiguous(), pid_lt, True,
+                                                                      scale_lt))))
+            return float(np.abs(got.reshape(-1, Bf_lt)[:m_lt, :F_lt] - want_lt).max())
+
+        err_lt = max(train_err(out_lt[0]), train_err(out_lt[-1]))
+        end("logreg_train_m64_f16_n8192", t0, per_step_lt, out_shape=list(out_lt.shape),
+            rot_steps=steps_lt, max_abs_decode_err=err_lt, out_scale_is_input_scale=(
+                scale_lt == 2.0 ** 40))
+        if not (err_lt < 1e-2 and scale_lt == 2.0 ** 40):
+            raise AssertionError(f"logreg_train_m64_f16_n8192 decodes {err_lt} from the cleartext "
+                                 "iteration")
+
+        # logreg_f16_n8192: bench_all.py's logreg cell (bench_all.py:689-723), the
+        # encrypted sigmoid head of F=16 weights; slot 0 decodes to sigma3(w.x + b)
+        n_lh = 1024 if rehearsal else 8192
+        t0 = begin("logreg_f16_n8192")
+        set_phase("keygen")
+        ctx_lh, kg_lh, cod_lh, enc_lh, dec_lh = ckks_context(n_lh, [50, 40, 40, 40, 40, 50])
+        rk_lh = kg_lh.relin_keys().stacked(2)
+        set_phase("build")
+        rng_lh = np.random.default_rng(3)
+        w_lh = rng_lh.uniform(-0.4, 0.4, size=16)
+        head_lh, pid_lh, scale_lh, steps_lh = T.build_ckks_logreg(ctx_lh, w_lh.tolist(), 0.25,
+                                                                  2.0 ** 40, cod_lh, device=device)
+        set_phase("keygen")
+        elts_lh = ctx_lh.first_context_data().galois_tool.get_elts_from_steps(steps_lh)
+        gk_lh = kg_lh.galois_keys(elts_lh).stacked(*elts_lh)
+        keygen_done("logreg_f16_n8192", t0)
+        set_phase("encode_encrypt")
+        xs_lh = [0.0] * cod_lh.slot_count
+        xs_lh[:16] = rng_lh.uniform(-1, 1, size=16).tolist()
+        ct_lh = enc_lh.encrypt(cod_lh.encode(xs_lh, 2.0 ** 40))
+        a_lh = ct_lh.data.expand((zb,) + tuple(ct_lh.data.shape)).contiguous()
+        set_phase("step")
+        out_lh, per_step_lh = count_step(head_lh, a_lh, gk_lh, rk_lh)
+        set_phase("decrypt_decode")
+        z_lh = float(w_lh @ np.asarray(xs_lh[:16]) + 0.25)
+        want_lh = 0.5 + 0.197 * z_lh - 0.004 * z_lh ** 3
+        err_lh = max(abs(cod_lh.decode(dec_lh.decrypt(T.Ciphertext(out_lh[b].contiguous(), pid_lh,
+                                                                   True, scale_lh)))[0] - want_lh)
+                     for b in (0, zb - 1))
+        end("logreg_f16_n8192", t0, per_step_lh, out_shape=list(out_lh.shape), rot_steps=steps_lh,
+            max_abs_decode_err=err_lh)
+        if not err_lh < 1e-2:
+            raise AssertionError(f"logreg_f16_n8192 decodes {err_lh} from sigma3(w.x + b)")
+
+        # inverse_ex14_n256: examples/ex14's softmax at its ring (N=256, [50, 40 x
+        # 11, 50], parms seed range(8)): exp by build_ckks_poly_eval, the slot sum
+        # by the Evaluator's rotation tree, the range reduction, then the step,
+        # build_ckks_inverse's four Goldschmidt iterations, and the product;
+        # within ex14's 2e-2 of softmax(x)
+        t0 = begin("inverse_ex14_n256")
+        set_phase("keygen")
+        ctx_iv = per_op_context(T.SchemeType.CKKS, 256, T.CoeffModulus.create(256, [50] + [40] * 11
+                                                                              + [50]),
+                                sec=T.SecLevelType.none)
+        kg_iv = T.KeyGenerator(ctx_iv, device=device)
+        enc_iv = T.Encryptor(ctx_iv, kg_iv.public_key(), device=device)
+        dec_iv = T.Decryptor(ctx_iv, kg_iv.secret_key, device=device)
+        cod_iv = T.CKKSEncoder(ctx_iv, device=device)
+        ev_iv = T.Evaluator(ctx_iv, device=device)
+        tool_iv = ctx_iv.first_context_data().galois_tool
+        rk_iv = kg_iv.relin_keys()
+        rks_iv = rk_iv.stacked(2)
+        gk_iv = kg_iv.galois_keys([tool_iv.get_elt_from_step(1 << i) for i in range(3)])
+        keygen_done("inverse_ex14_n256", t0)
+        set_phase("encode_encrypt")
+        x_iv = np.random.default_rng(41).uniform(-1, 1, 8)
+        ct_iv = enc_iv.encrypt(cod_iv.encode([float(x_iv[i % 8]) for i in range(cod_iv.slot_count)],
+                                             2.0 ** 40))
+        set_phase("exp_sum_reduce")
+        exp_iv, exp_pid_iv, exp_scale_iv = T.build_ckks_poly_eval(
+            ctx_iv, [1.0, 1.0, 0.5, 1.0 / 6.0, 1.0 / 24.0], 2.0 ** 40, cod_iv, device=device)
+        ct_e_iv = T.Ciphertext(exp_iv(ct_iv.data, rks_iv, None), exp_pid_iv, True, exp_scale_iv)
+        ct_s_iv = ct_e_iv
+        for i in range(3):
+            ct_s_iv = ev_iv.add(ct_s_iv, ev_iv.rotate_vector(ct_s_iv, 1 << i, gk_iv))
+        ct_r_iv = ev_iv.rescale_to_next(ev_iv.multiply_plain(
+            ct_s_iv, cod_iv.encode(1.0 / 16.0, 2.0 ** 10, ct_s_iv.parms_id)))
+        set_phase("build")
+        inv_iv, inv_pid_iv, inv_scale_iv = T.build_ckks_inverse(
+            ctx_iv, ct_r_iv.scale, cod_iv, iters=4, parms_id=ct_r_iv.parms_id, device=device)
+        set_phase("step")
+        d_iv, per_step_iv = count_step(inv_iv, ct_r_iv.data, rks_iv)
+        set_phase("softmax_product")
+        out_iv = ev_iv.rescale_to_next(ev_iv.relinearize(ev_iv.multiply(
+            ev_iv.mod_switch_to(ct_e_iv, inv_pid_iv), T.Ciphertext(d_iv, inv_pid_iv, True,
+                                                                   inv_scale_iv)), rk_iv))
+        out_iv.scale *= 16.0
+        set_phase("decrypt_decode")
+        got_iv = np.asarray(cod_iv.decode(dec_iv.decrypt(out_iv)))[:8]
+        err_iv = float(np.abs(got_iv - np.exp(x_iv) / np.exp(x_iv).sum()).max())
+        end("inverse_ex14_n256", t0, per_step_iv, out_shape=list(d_iv.shape),
+            levels_consumed=len(ct_r_iv.data[0]) - len(d_iv[0]), max_abs_decode_err=err_iv)
+        if not err_iv < 2e-2:
+            raise AssertionError(f"inverse_ex14_n256's softmax decodes {err_iv} from softmax(x)")
+
+        def within(err, limit):
+            return err < limit, {"max_abs_decode_err": err}
+
+        def record(name, metric, fn, args, per_step, decode2=None):
+            """A timed zoo path: its step at batch zb, the launches of one
+            step, and decode2(batch-2 output) -> (ok, fields) where the
+            batch-2 form is held to the plain path."""
+            return types.SimpleNamespace(name=name, metric=metric, count=zb, fn=fn, args=args,
+                                         launches=sum(by_label(per_step).values()),
+                                         decode2=decode2)
+
+        return [
+            record("dense_layer8x8_n8192", "ckks_dense_layer8x8_n8192_layers_per_s", layer_dl,
+                   (a_dl, gk8, rk_dl), per_step_dl, lambda d: within(dense_dl_err(d, 1), 1e-3)),
+            record("dense_layer8x8_bsgs_n8192", "ckks_dense_layer8x8_bsgs_n8192_layers_per_s",
+                   layer_dlb, (a_dl, gk_dlb, rk_dl), per_step_dlb,
+                   lambda d: within(dense_dl_err(d, 1), 1e-3)),
+            record("cnn16x16_n4096", "ckks_cnn16x16_n4096_images_per_s", cnn,
+                   (a_cn, gk_cn, rk_cn), per_step_cn, lambda d: within(cnn_err(d[1]), 1e-2)),
+            record("bfv_matvec8x8_n8192", "bfv_matvec8x8_n8192_layers_per_s", bmv, (a_bm, gk_bm),
+                   per_step_bm, lambda d: (decodes2(d[1]) == want_bm, {"decode_exact": True})),
+            record("logreg_train_m64_f16_n8192", "ckks_logreg_train_m64_f16_n8192_iters_per_s",
+                   train_lt, (a_lx, a_lw, gk_lt, rk_lt), per_step_lt),
+            record("logreg_f16_n8192", "ckks_logreg_f16_n8192_inferences_per_s", head_lh,
+                   (a_lh, gk_lh, rk_lh), per_step_lh)]
+
+    zoo = zoo_paths()
     recorder.remove()
     for kernel, row in rows.items():
         emit({"phase": "kernel_check", "kernel": kernel, "equal": True, **row})
@@ -2480,7 +2879,7 @@ def main(argv=None) -> int:
         emit({"phase": "batch2", "form": name, "equal_to_plain": True,
               "max_abs_decode_err": err})
     bctx3, brk3, ab3, chain3, decodes3 = cfg3
-    bctx1, brk1, ab1, mul1, decodes1 = cfg1
+    _, brk1, ab1, mul1, decodes1 = cfg1
     b3, b1 = ab3[:2].contiguous(), ab1[:2].contiguous()
     chain3_seq = T.build_bfv_mul_relin_modswitch(bctx3, fused_drop=False, device=device)
     mul3 = T.build_bfv_mul_relin(bctx3, device=device)
@@ -2560,6 +2959,23 @@ def main(argv=None) -> int:
     emit({"phase": "batch2", "form": "dense8x8_n8192", "equal_to_plain": True,
           "max_abs_decode_err": err})
     del got_k, got_p
+
+    # the model zoo's dense layer (both forms), CNN and BFV matvec at batch 2
+    for z in zoo:
+        if z.decode2 is None:
+            continue
+        fargs = (z.args[0][:2].contiguous(),) + z.args[1:]
+        got_k = z.fn(*fargs)
+        with plain_versions():
+            got_p = z.fn(*fargs)
+        sync()
+        if not torch.equal(got_k, got_p):
+            raise AssertionError(f"batch-2 {z.name} differs from the plain path")
+        ok, fields = z.decode2(got_k)
+        if not ok:
+            raise AssertionError(f"batch-2 {z.name} does not decode to its expectation: {fields}")
+        emit({"phase": "batch2", "form": z.name, "equal_to_plain": True, **fields})
+        del got_k, got_p
 
     # the power-basis limb drop of config 3's per-level chain at batch 128,
     # timed as a function (its four launches together) beside its bound
@@ -2706,6 +3122,7 @@ def main(argv=None) -> int:
         ("matvec_limb4_n4096", "ckks_matvec8x8_limb4_n4096_layers_per_s", rot_batch,
          lambda: limb_matvec(a_mc), rot_batch),
     ]
+    timed += [(z.name, z.metric, z.count, lambda z=z: z.fn(*z.args), z.count) for z in zoo]
     keygen_of = {"mul_relin_rescale_sequential": "mul_relin_rescale",
                  "bfv_mul_relin_n8192": "bfv_mul_relin_chain",
                  "bfv_square_relin_n8192": "bfv_mul_relin_chain",
@@ -2717,7 +3134,8 @@ def main(argv=None) -> int:
                  "ntt_sp4_n16384": "ckks_mul_relin_rescale_n16384",
                  "ckks_rotate_csp4_n16384": "ckks_mul_relin_rescale_csp4_n16384",
                  "ckks_rotate_many_limb4_n4096": "ckks_mul_relin_rescale_limb4_n4096",
-                 "bfv_mul_relin_behz4_n8192": "bfv_mul_relin_chain"}
+                 "bfv_mul_relin_behz4_n8192": "bfv_mul_relin_chain",
+                 "dense_layer8x8_bsgs_n8192": "dense_layer8x8_n8192"}
     sharded_paths = {"ntt_sp4_n65536", "ntt_sp4_n16384", "ckks_mul_relin_rescale_csp4_n16384",
                      "ckks_rotate_csp4_n16384", "ckks_mul_relin_rescale_limb4_n4096",
                      "ckks_rotate_many_limb4_n4096", "bfv_mul_relin_behz4_n8192",
@@ -2725,6 +3143,8 @@ def main(argv=None) -> int:
     extra_of = {"bootstrap_n4096": {
         "max_err": err7, "levels_restored": levels_out7, "levels_consumed": levels7,
         "launches_per_refresh": sum(paths["bootstrap_n4096"]["launches_per_step"].values())}}
+    for z in zoo:
+        extra_of[z.name] = {"launches_per_step": z.launches}
     if not rehearsal:
         for entry in timed:
             turns = [(entry, 1)] if isinstance(entry[0], str) else [

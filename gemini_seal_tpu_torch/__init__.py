@@ -14,7 +14,9 @@ flagship train step (multiply + relinearize + rescale, rotate, add;
 ``entry()``) and the deep polynomial evaluation; the BFV BatchEncoder, the
 BEHZ multiply + relinearize, its mod-switch chain, the power-basis Galois
 automorphism and the hoisted row rotations; the encrypted matvecs
-(hoisted diagonal method and baby-step/giant-step), the Chebyshev-cosine
+(hoisted diagonal method and baby-step/giant-step) and the model zoo on
+them (dense layer, MLP, convolutions, CNN, BFV matvec, logistic regression
+and its training step, Goldschmidt reciprocal), the Chebyshev-cosine
 EvalMod and the CKKS bootstrap (models.bootstrap, whose mod-raise runs on
 the ``mod_raise`` kernel); the SEAL per-op API: the whole ``Evaluator``
 (its monomial multiply_plain on the ``negacyclic`` kernel),
@@ -35,12 +37,15 @@ from .decryptor import Decryptor
 from .evaluator import Evaluator
 from .encoders import BatchEncoder, CKKSEncoder, IntegerEncoder
 from .models.device_evaluator import DeviceEvaluator
-from .models.pipelines import (build_bfv_mul_relin, build_bfv_mul_relin_modswitch,
-                               build_bfv_rotate_many, build_ckks_matvec,
-                               build_ckks_matvec_bsgs, build_ckks_mul_relin_rescale,
-                               build_ckks_poly_eval, build_ckks_rotate,
-                               build_ckks_rotate_many, build_ckks_train_step,
-                               prepermute_galois_stack)
+from .models.pipelines import (build_bfv_matvec, build_bfv_mul_relin,
+                               build_bfv_mul_relin_modswitch, build_bfv_rotate_many,
+                               build_ckks_cnn, build_ckks_conv2d, build_ckks_conv2d_mc,
+                               build_ckks_dense_layer, build_ckks_inverse, build_ckks_logreg,
+                               build_ckks_logreg_train_step, build_ckks_matvec,
+                               build_ckks_matvec_bsgs, build_ckks_mlp,
+                               build_ckks_mul_relin_rescale, build_ckks_poly_eval,
+                               build_ckks_rotate, build_ckks_rotate_many, build_ckks_train_step,
+                               prepermute_galois_stack, strided_dense_diagonals)
 from .entry import entry
 
 __all__ = [
@@ -66,16 +71,26 @@ __all__ = [
     "BatchEncoder",
     "CKKSEncoder",
     "IntegerEncoder",
+    "build_bfv_matvec",
     "build_bfv_mul_relin",
     "build_bfv_mul_relin_modswitch",
     "build_bfv_rotate_many",
+    "build_ckks_cnn",
+    "build_ckks_conv2d",
+    "build_ckks_conv2d_mc",
+    "build_ckks_dense_layer",
+    "build_ckks_inverse",
+    "build_ckks_logreg",
+    "build_ckks_logreg_train_step",
     "build_ckks_matvec",
     "build_ckks_matvec_bsgs",
+    "build_ckks_mlp",
     "build_ckks_mul_relin_rescale",
     "build_ckks_poly_eval",
     "build_ckks_rotate",
     "build_ckks_rotate_many",
     "build_ckks_train_step",
     "prepermute_galois_stack",
+    "strided_dense_diagonals",
     "entry",
 ]

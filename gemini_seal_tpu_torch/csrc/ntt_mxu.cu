@@ -90,6 +90,7 @@ constexpr int GROUPS = 3;                     // groups for S <= 15 planes
 constexpr int DW_MAX = 7, DX_MAX = 8;
 constexpr int MAX_L = 64;
 constexpr int MAX_STAGES = 8;
+constexpr int ENCODE_ERROR_BASE = 100000;   // + the CUresult of a failed tensor-map encode
 constexpr int SMEM_LIMIT = 232448;
 // shared memory: mbarriers (full, empty, the raw halves) and the limb's
 // constants, then W's planes, the stages, the raw halves
@@ -669,10 +670,10 @@ int launch(Params P, const void* x, long long R, long long grid_x, long long sme
         box[0] = BOX;
         box[1] = NT / 2;
     }
-    if (encode(&P.tmap, CU_TENSOR_MAP_DATA_TYPE_UINT64, 2, const_cast<void*>(x), dims, strides,
-               box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-        return (int)cudaErrorInvalidValue;
+    // the runtime calls come before cuTensorMapEncodeTiled: they make the
+    // device's primary context current on the calling thread, and on a
+    // thread that has made no runtime call yet (a worker's first launch) the
+    // encode finds none and returns CUDA_ERROR_INVALID_CONTEXT
     auto kern = ntt_mxu_kernel<NT, RES, KS>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -681,6 +682,11 @@ int launch(Params P, const void* x, long long R, long long grid_x, long long sme
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, (size_t)smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const CUresult enc = encode(&P.tmap, CU_TENSOR_MAP_DATA_TYPE_UINT64, 2, const_cast<void*>(x),
+                                dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (enc != CUDA_SUCCESS) return ENCODE_ERROR_BASE + (int)enc;
     kern<<<dim3((unsigned)grid_x, (unsigned)(P.L << P.log_mblocks)), THREADS, smem, stream>>>(P);
     return (int)cudaGetLastError();
 }
@@ -701,7 +707,8 @@ int launch(Params P, const void* x, long long R, long long grid_x, long long sme
 // bytes and the grid's x), which is checked here against the instantiations
 // and the layout they read.  mode 0 is pass A (K = N1, n = N2), mode 1
 // pass B (K = N2, n = N1); K and n powers of two, 2 <= K <= 512, n >= 2.
-// Returns cudaGetLastError() after the launch, or an error without one.
+// Returns cudaGetLastError() after the launch, or an error without one:
+// ENCODE_ERROR_BASE plus the CUresult of a failed tensor-map encode.
 extern "C" int gst_ntt_mxu(void* out, const void* x, const void* w, const void* tw,
                            const void* tws, const void* mod, const void* r1, const void* fold,
                            const void* counts, const void* geom, long long R, long long L,

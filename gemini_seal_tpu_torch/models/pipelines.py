@@ -5,10 +5,13 @@ Port of these steps of gemini_seal_tpu/models/pipelines.py: CKKS multiply
 multi-rotation step in both key forms (plain and counter-rotated keys), the
 flagship train step (multiply + relinearize + rescale, rotate, add), the
 deep polynomial evaluation and the encrypted matrix-vector products (the
-hoisted diagonal method and baby-step/giant-step); the BFV (BEHZ) multiply
-+ relinearize, its mod-switch chain and the hoisted row rotations.  Every step takes
-ciphertext data shaped [..., size, L, N] with any leading batch axes, as
-the JAX functions do.
+hoisted diagonal method and baby-step/giant-step); the encrypted model zoo
+built on them (the dense layer, the MLP, the single- and multi-channel
+convolutions and the CNN, the logistic-regression head and its training
+step, the Goldschmidt reciprocal); the BFV (BEHZ) multiply + relinearize,
+its mod-switch chain, the hoisted row rotations and the hoisted BFV matvec.
+Every step takes ciphertext data shaped [..., size, L, N] with any leading
+batch axes, as the JAX functions do.
 PyTorch runs eagerly; each modular-arithmetic stage is one launch of a
 hand-written kernel (``tensor_product``, ``ntt``, ``contract``,
 ``elementwise``, ``galois``, ``behz``) on the context's device.
@@ -23,14 +26,15 @@ import torch
 
 from ..context import SealContext
 from ..ops import cuda
-from ..ops.backend import is_cuda
-from ..ops.dyadic import LimbConstants, add_poly, dyadic_product, multiply_poly_scalar
+from ..ops.backend import is_cuda, to_numpy, to_tensor
+from ..ops.dyadic import (LimbConstants, add_poly, dyadic_product, multiply_poly_scalar,
+                          negate_poly, sub_poly)
 from ..ops.galois import galois_permute
 from ..ops.keyswitch import (KeySwitchPlan, batched_rotated_inner_product,
                              compute_modup_digits, fused_moddown, keys_stack_inner_product,
                              keyswitch_inner_product, rescale_special, switch_key)
 from ..ops.modops import add_mod, contract_mulmod_128, mul_mod
-from ..ops.ntt import ntt_forward_lazy, ntt_inverse
+from ..ops.ntt import ntt_forward, ntt_forward_lazy, ntt_inverse
 from ..ops.rnsops import (MultiDropPlan, divide_and_round_multi, divide_and_round_q_last,
                           divide_and_round_q_last_ntt, fast_floor, fastbconv_m_tilde,
                           fastbconv_sk, sm_mrq)
@@ -39,7 +43,10 @@ __all__ = ["build_ckks_mul_relin_rescale", "build_ckks_rotate",
            "build_ckks_rotate_many", "build_ckks_train_step", "build_ckks_poly_eval",
            "build_bfv_mul_relin", "build_bfv_mul_relin_modswitch", "build_bfv_rotate_many",
            "prepermute_galois_stack", "tensor_product_plain", "build_ckks_matvec",
-           "build_ckks_matvec_bsgs"]
+           "build_ckks_matvec_bsgs", "build_ckks_dense_layer", "build_ckks_mlp",
+           "build_ckks_conv2d", "strided_dense_diagonals", "build_ckks_conv2d_mc",
+           "build_ckks_cnn", "build_bfv_matvec", "build_ckks_logreg",
+           "build_ckks_logreg_train_step", "build_ckks_inverse"]
 
 
 def tensor_product_plain(a, b, limbs: LimbConstants):
@@ -84,6 +91,35 @@ def _tensor_product(a, b, limbs: LimbConstants):
               a.numel() // (2 * L * N), L, N, cuda.ptr(limbs.p),
               cuda.ptr(limbs.ratio0), cuda.ptr(limbs.ratio1))
     return out
+
+
+def _relinearize_batched(c0, c1, c2, key_data, plan: KeySwitchPlan, limbs: LimbConstants,
+                         is_ntt: bool):
+    """Fold the c2 component back onto (c0, c1) by the hybrid key switch
+    (switch_key on [..., L, N], batch axes broadcast), then add."""
+    d0, d1 = switch_key(c2, key_data, plan, is_ntt)
+    return add_poly(c0.contiguous(), d0, limbs), add_poly(c1.contiguous(), d1, limbs)
+
+
+def _plain_add_c0(x, pt, limbs: LimbConstants):
+    """A plaintext pt [L, N] added onto component 0 of x [..., 2, L, N]."""
+    return torch.stack([add_poly(x[..., 0, :, :].contiguous(), pt, limbs), x[..., 1, :, :]],
+                       dim=-3)
+
+
+def _plain_mul_rescale(x, pt, cd):
+    """Both components of x times the plaintext pt (one ``elementwise``
+    launch), then the rounded division by the level's last prime."""
+    t = dyadic_product(x.contiguous(), pt, cd.limb_constants)
+    return divide_and_round_q_last_ntt(t, cd.device_rns_tool, cd.ntt_tables)
+
+
+def _rotate_by_key(x, tool, elt: int, key, plan: KeySwitchPlan, limbs: LimbConstants):
+    """One NTT-domain rotation: both components in one ``galois`` launch,
+    then c1 key-switched back to s."""
+    rc = tool.apply_galois_ntt(x, elt)
+    d0, d1 = switch_key(rc[..., 1, :, :], key, plan, True)
+    return torch.stack([add_poly(rc[..., 0, :, :].contiguous(), d0, limbs), d1], dim=-3)
 
 
 def build_ckks_mul_relin_rescale(context: SealContext, parms_id=None,
@@ -158,10 +194,7 @@ def build_ckks_rotate(context: SealContext, steps: int, parms_id=None,
     plan = KeySwitchPlan(context, parms_id)
 
     def step(ct, galois_key):
-        rot = tool.apply_galois_ntt(ct, elt)
-        d0, d1 = switch_key(rot[..., 1, :, :], galois_key, plan, True)
-        return torch.stack([add_poly(rot[..., 0, :, :].contiguous(), d0, limbs), d1],
-                           dim=-3)
+        return _rotate_by_key(ct, tool, elt, galois_key, plan, limbs)
 
     return step
 
@@ -503,11 +536,8 @@ def build_ckks_poly_eval(context: SealContext, coeffs, scale: float, encoder,
 
     def rotate_sum_tree(r, galois_keys_stack):
         for i, elt in enumerate(tree_elts):
-            rc = tool.apply_galois_ntt(r, elt)                         # both components
-            d0, d1 = switch_key(rc[..., 1, :, :], galois_keys_stack[i], rot_plan, True)
-            rot = torch.stack([add_poly(rc[..., 0, :, :].contiguous(), d0, deep_limbs), d1],
-                              dim=-3)
-            r = add_poly(r, rot, deep_limbs)
+            r = add_poly(r, _rotate_by_key(r, tool, elt, galois_keys_stack[i], rot_plan,
+                                           deep_limbs), deep_limbs)
         return r
 
     def step(x, relin_key, galois_keys_stack):
@@ -524,8 +554,7 @@ def build_ckks_poly_eval(context: SealContext, coeffs, scale: float, encoder,
             pk = powers[k - 1][..., :L_deep, :].contiguous()           # mod-switch drop
             term = dyadic_product(pk, plains[k - 1], deep_limbs)
             acc = term if acc is None else add_poly(acc, term, deep_limbs)
-        c0 = add_poly(acc[..., 0, :, :].contiguous(), const_plain, deep_limbs)
-        r = torch.cat([c0.unsqueeze(-3), acc[..., 1:, :, :]], dim=-3)
+        r = _plain_add_c0(acc, const_plain, deep_limbs)
         if not rotate_sum_log2:
             return r
         if rotate_mode == "flat":
@@ -761,3 +790,574 @@ def build_ckks_matvec_bsgs(context: SealContext, diagonals, scale: float, encode
         return torch.stack([out0, out1], dim=-3)
 
     return step, rot_steps
+
+
+def build_ckks_dense_layer(context: SealContext, diagonals, bias, scale: float, encoder,
+                           parms_id=None, activation: str = "square", bsgs: bool = False,
+                           device=None):
+    """One encrypted dense layer y = act(M x + b) (the JAX package's
+    build_ckks_dense_layer, examples/ex9's flow in one step): the hoisted
+    matvec with its raw accumulators mod-downed once (build_ckks_matvec,
+    fuse_moddown; or build_ckks_matvec_bsgs with bsgs=True), the rescale by
+    the level's last prime, the plaintext bias, and for activation "square"
+    the 3-product square, relinearize and rescale.
+
+    diagonals: {step: slot values} of M; bias: slot values of b;
+    activation: "square" or None.  Returns (fn, out_parms_id, out_scale):
+    fn(ct, galois_keys_stack, relin_key) -> int64[..., 2, L_out, N] in NTT
+    form at out_scale, bit-identical to the JAX package's step; fn.rot_steps
+    lists the rotation-key steps in stack order (both paths).
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    cd0 = context.get_context_data(parms_id)
+    cd1 = cd0.next_context_data
+    if cd1 is None or (activation == "square" and cd1.next_context_data is None):
+        raise ValueError("modulus chain too short for a dense layer")
+    if bsgs:
+        mv_step, rot_steps = build_ckks_matvec_bsgs(context, diagonals, scale, encoder,
+                                                    parms_id, device=device)
+    else:
+        mv_step = build_ckks_matvec(context, diagonals, scale, encoder, parms_id,
+                                    device=device)
+        rot_steps = [s for s in sorted(diagonals) if s != 0]
+    q0 = cd0.parms.coeff_modulus[-1].value
+    scale_r = scale * scale / q0
+    limbs1 = cd1.limb_constants
+    bias_pt = encoder.encode(list(bias), scale_r, cd1.parms_id).data
+    if activation == "square":
+        plan1 = KeySwitchPlan(context, cd1.parms_id)
+        out_parms_id = cd1.next_context_data.parms_id
+        out_scale = scale_r * scale_r / cd1.parms.coeff_modulus[-1].value
+    elif activation is None:
+        out_parms_id = cd1.parms_id
+        out_scale = scale_r
+    else:
+        raise ValueError(f"unsupported activation {activation!r}")
+    tool0, tables0 = cd0.device_rns_tool, cd0.ntt_tables
+
+    def step(ct, galois_keys_stack, relin_key):
+        y = mv_step(ct, galois_keys_stack)                          # [..., 2, L0, N] scale^2
+        y = _plain_add_c0(divide_and_round_q_last_ntt(y, tool0, tables0), bias_pt, limbs1)
+        if activation == "square":
+            d0, d1, d2 = _tensor_product(y.contiguous(), None, limbs1)
+            y = torch.stack(_relinearize_batched(d0, d1, d2, relin_key, plan1, limbs1, True),
+                            dim=-3)
+            y = divide_and_round_q_last_ntt(y, cd1.device_rns_tool, cd1.ntt_tables)
+        return y
+
+    step.rot_steps = rot_steps
+    return step, out_parms_id, out_scale
+
+
+def _chain(fns):
+    """fn(ct, [galois_keys_stack per layer], relin_key): the layers in turn."""
+    def step(ct, gk_stacks, relin_key):
+        y = ct
+        for fn, g in zip(fns, gk_stacks):
+            y = fn(y, g, relin_key)
+        return y
+
+    return step
+
+
+def build_ckks_mlp(context: SealContext, layers, scale: float, encoder, bsgs: bool = False,
+                   device=None):
+    """A chain of build_ckks_dense_layer steps down the modulus chain (each
+    linear layer one level, each squared layer two), the JAX package's
+    build_ckks_mlp.
+
+    layers: [(diagonals, bias, activation), ...].  Returns (fn,
+    out_parms_id, out_scale): fn(ct, [galois_keys_stack per layer],
+    relin_key) -> int64[..., 2, L_out, N]; fn.rot_steps: one list per layer.
+    """
+    context.check_device(device)
+    fns = []
+    pid = context.first_parms_id
+    cur_scale = float(scale)
+    for diagonals, bias, act in layers:
+        fn, pid, cur_scale = build_ckks_dense_layer(context, diagonals, bias, cur_scale,
+                                                    encoder, parms_id=pid, activation=act,
+                                                    bsgs=bsgs, device=device)
+        fns.append(fn)
+    step = _chain(fns)
+    step.rot_steps = [fn.rot_steps for fn in fns]
+    return step, pid, cur_scale
+
+
+def _tap_mask(dy: int, dx: int, height: int, width: int, weight: float) -> np.ndarray:
+    """weight where the source pixel (r + dy, c + dx) lies in the image, 0
+    elsewhere, row-major over the h*w image: SAME zero padding."""
+    rr, cc = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    valid = (rr + dy >= 0) & (rr + dy < height) & (cc + dx >= 0) & (cc + dx < width)
+    return np.where(valid, weight, 0.0).reshape(-1)
+
+
+def build_ckks_conv2d(context: SealContext, kernel, height: int, width: int, scale: float,
+                      encoder, bias=None, parms_id=None, activation: str = None,
+                      periodic: bool = False, device=None):
+    """Encrypted single-channel SAME 2-D convolution (+ bias + optional
+    square) over a row-major image in the slots, the JAX package's
+    build_ckks_conv2d: tap (dy, dx) is the generalized diagonal of step
+    dy*width + dx holding the tap's weight masked to zero where the source
+    pixel falls outside the image, so the layer is one dense layer
+    (build_ckks_dense_layer, hoisted matvec).  periodic=True tiles the
+    masks over the whole slot vector (slots % (h*w) == 0), for chaining.
+
+    Returns (fn, out_parms_id, out_scale, rot_steps): fn(ct,
+    galois_keys_stack, relin_key) with Galois keys for rot_steps in order.
+    """
+    context.check_device(device)
+    k = np.asarray(kernel, dtype=np.float64)
+    if k.ndim != 2 or k.shape[0] % 2 == 0 or k.shape[1] % 2 == 0:
+        raise ValueError("kernel must be 2-D with odd dimensions")
+    kh, kw = k.shape
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    slots = context.get_context_data(parms_id).parms.poly_modulus_degree // 2
+    if height * width > slots:
+        raise ValueError("image does not fit in the slot count")
+    if abs(kw // 2) >= width or abs(kh // 2) >= height:
+        raise ValueError("kernel larger than the image")
+    if periodic and slots % (height * width) != 0:
+        raise ValueError("periodic conv needs slot_count % (h*w) == 0")
+    diagonals = {}
+    for dy in range(-(kh // 2), kh // 2 + 1):
+        for dx in range(-(kw // 2), kw // 2 + 1):
+            wt = float(k[dy + kh // 2, dx + kw // 2])
+            if wt == 0.0:
+                continue
+            mask = _tap_mask(dy, dx, height, width, wt)
+            if periodic:
+                mask = np.tile(mask, slots // (height * width))
+            diagonals[dy * width + dx] = mask.tolist()
+    if bias is None:
+        bias = [0.0] * (height * width)
+    fn, out_pid, out_scale = build_ckks_dense_layer(context, diagonals, bias, scale, encoder,
+                                                    parms_id=parms_id, activation=activation,
+                                                    device=device)
+    return fn, out_pid, out_scale, fn.rot_steps
+
+
+def strided_dense_diagonals(M, height: int, width: int, stride: int, slots: int):
+    """Generalized diagonals of the slot-linear map that reads the
+    stride-subsampled grid of an h*w image and writes n_out compact outputs
+    at slots [0, n_out) (striding absorbed into the next dense layer), the
+    JAX package's strided_dense_diagonals.
+
+    M: [n_out, ph*pw] over the pooled pixels (ph = ceil(h/stride)).
+    Returns {step: slot values} with steps in [0, slots), for
+    build_ckks_dense_layer(bsgs=True).
+    """
+    M = np.asarray(M, dtype=np.float64)
+    ph = (height + stride - 1) // stride
+    pw = (width + stride - 1) // stride
+    if M.shape[1] != ph * pw:
+        raise ValueError("M columns must equal the pooled pixel count")
+    n_out = M.shape[0]
+    if n_out > slots or height * width > slots:
+        raise ValueError("map does not fit in the slot count")
+    src = [(r * stride) * width + c * stride for r in range(ph) for c in range(pw)]
+    diagonals = {}
+    for j in range(n_out):
+        for jp in range(ph * pw):
+            wt = float(M[j, jp])
+            if wt == 0.0:
+                continue
+            m = diagonals.setdefault((src[jp] - j) % slots, np.zeros(slots))
+            m[j] += wt
+    return {s: m.tolist() for s, m in diagonals.items()}
+
+
+def build_ckks_conv2d_mc(context: SealContext, kernel, height: int, width: int,
+                         scale: float, encoder, bias=None, parms_id=None,
+                         activation: str = None, periodic: bool = False, device=None):
+    """Multi-channel encrypted 2-D convolution, kernel [oc, ic, kh, kw] over
+    a channels-blocked packing (slot ch*h*w + r*w + c holds pixel (r, c) of
+    channel ch), the JAX package's build_ckks_conv2d_mc: each (oc, ic, tap)
+    adds its masked weight to the diagonal of step (ic - oc)*h*w + dy*w +
+    dx, and the whole layer is one dense layer.  periodic=True tiles the
+    masks with period oc*h*w (slots % (oc*h*w) == 0 and oc % ic == 0).
+
+    Returns (fn, out_parms_id, out_scale, rot_steps).
+    """
+    context.check_device(device)
+    k = np.asarray(kernel, dtype=np.float64)
+    if k.ndim != 4 or k.shape[2] % 2 == 0 or k.shape[3] % 2 == 0:
+        raise ValueError("kernel must be [oc, ic, kh, kw] with odd kh/kw")
+    OC, IC, kh, kw = k.shape
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    slots = context.get_context_data(parms_id).parms.poly_modulus_degree // 2
+    hw = height * width
+    if max(OC, IC) * hw > slots:
+        raise ValueError("channel blocks do not fit in the slot count")
+    if kh // 2 >= height or kw // 2 >= width:
+        raise ValueError("kernel larger than the image")
+    if periodic:
+        if slots % (OC * hw) != 0:
+            raise ValueError("periodic conv needs slots % (oc*h*w) == 0")
+        if OC % IC != 0:
+            raise ValueError("periodic chaining needs oc % ic == 0")
+    out_len = OC * hw
+    masks = {}
+    for oc in range(OC):
+        for ic in range(IC):
+            for dy in range(-(kh // 2), kh // 2 + 1):
+                for dx in range(-(kw // 2), kw // 2 + 1):
+                    wt = float(k[oc, ic, dy + kh // 2, dx + kw // 2])
+                    if wt == 0.0:
+                        continue
+                    m = masks.setdefault((ic - oc) * hw + dy * width + dx, np.zeros(out_len))
+                    m[oc * hw:(oc + 1) * hw] += _tap_mask(dy, dx, height, width, wt)
+    diagonals = {s: (np.tile(m, slots // out_len) if periodic else m).tolist()
+                 for s, m in masks.items()}
+    if bias is None:
+        bias = [0.0] * out_len
+    fn, out_pid, out_scale = build_ckks_dense_layer(context, diagonals, list(bias), scale,
+                                                    encoder, parms_id=parms_id,
+                                                    activation=activation, device=device)
+    return fn, out_pid, out_scale, fn.rot_steps
+
+
+def build_ckks_cnn(context: SealContext, convs, dense, height: int, width: int, scale: float,
+                   encoder, bsgs: bool = True, device=None):
+    """Encrypted CNN inference, the JAX package's build_ckks_cnn: periodic
+    SAME convolutions (build_ckks_conv2d for a [kh, kw] kernel,
+    build_ckks_conv2d_mc for [oc, ic, kh, kw]) then dense layers (on the
+    baby-step/giant-step matvec with bsgs=True) down the modulus chain.
+    The image is packed block-periodically (slot i holds pixel i mod h*w).
+
+    convs: [(kernel, bias or None, activation), ...]; dense: [(diagonals,
+    bias, activation), ...].  Returns (fn, out_parms_id, out_scale):
+    fn(ct, [galois_keys_stack per layer], relin_key); fn.rot_steps: one
+    list per layer, convolutions first.
+    """
+    context.check_device(device)
+    fns, steps_all = [], []
+    pid = context.first_parms_id
+    cur = float(scale)
+    for kernel, bias, act in convs:
+        builder = build_ckks_conv2d_mc if np.asarray(kernel).ndim == 4 else build_ckks_conv2d
+        fn, pid, cur, rsteps = builder(context, kernel, height, width, cur, encoder, bias=bias,
+                                       parms_id=pid, activation=act, periodic=True,
+                                       device=device)
+        fns.append(fn)
+        steps_all.append(rsteps)
+    for diagonals, bias, act in dense:
+        fn, pid, cur = build_ckks_dense_layer(context, diagonals, bias, cur, encoder,
+                                              parms_id=pid, activation=act, bsgs=bsgs,
+                                              device=device)
+        fns.append(fn)
+        steps_all.append(fn.rot_steps)
+    step = _chain(fns)
+    step.rot_steps = steps_all
+    return step, pid, cur
+
+
+def _centered_lift(plain, thresh: int, t: int, moduli, n: int) -> np.ndarray:
+    """Residues over `moduli` (ints) of a BFV plaintext's coefficients
+    lifted to signed values (v - t where v >= thresh): valid beyond the
+    ciphertext base (evaluator.cpp:1560-1580 on the signed value)."""
+    pdata = np.zeros(n, dtype=np.int64)
+    arr = to_numpy(plain).astype(np.int64)
+    pdata[: arr.shape[0]] = arr
+    w = np.where(pdata >= np.int64(thresh), pdata - np.int64(t), pdata)
+    return np.stack([np.mod(w, np.int64(m)).astype(np.uint64) for m in moduli])
+
+
+def build_bfv_matvec(context: SealContext, diagonals, batch_encoder, parms_id=None,
+                     device=None) -> Callable:
+    """Encrypted BFV matrix-vector product by the diagonal method with
+    hoisted rotations and one mod-down (the JAX package's build_bfv_matvec):
+    y = sum_d diag_d (*) rot_rows(x, d).  One power-basis mod-up of c1 feeds
+    every rotation's raw key-switch inner product; the raws are weighted by
+    the diagonals' centred lifts in the NTT domain of the extended base and
+    summed (one ``contract`` launch a component), then mod-downed once; the
+    rotated c0 rows (one ``galois`` launch on one forward NTT of c0) are
+    weighted by the lifts at the ciphertext base and summed.
+
+    diagonals: {step d: slot values in [0, t)}.  Returns fn(ct,
+    galois_keys_stack) -> int64[..., 2, L, N] in the power basis at the same
+    level, bit-identical to the JAX package's step; galois_keys_stack:
+    int64[n_nonzero_steps, n_bundles, 2, L_key, N] in sorted step order.
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    cd = context.get_context_data(parms_id)
+    limbs = cd.limb_constants
+    tool = cd.galois_tool
+    tables = cd.ntt_tables
+    plan = KeySwitchPlan(context, parms_id)
+    thresh = cd.plain_upper_half_threshold
+    t = cd.parms.plain_modulus.value
+    n = cd.parms.poly_modulus_degree
+    dev = context.device
+
+    steps = sorted(diagonals.keys())
+    rot_steps = [s for s in steps if s != 0]
+    R = len(rot_steps)
+    plains = batch_encoder.encode_batch([list(diagonals[s]) for s in steps])
+    ct_mods = [m.value for m in cd.parms.coeff_modulus]
+
+    def lifted(moduli, ntt_tables, which):
+        rows = [_centered_lift(plains[steps.index(s)].data, thresh, t, moduli, n)
+                for s in which]
+        return ntt_forward(to_tensor(np.stack(rows), dev), ntt_tables)   # canonical
+
+    plain0 = lifted(ct_mods, tables, [0])[0] if 0 in diagonals else None
+    if R:
+        rot_tabs = tool.ntt_tables([tool.get_elt_from_step(s) for s in rot_steps])
+        ptc = lifted(ct_mods, tables, rot_steps).unsqueeze(0)               # [1, R, L, N]
+        pte = lifted(plan.ext_moduli, plan.ext_tables, rot_steps).unsqueeze(0)
+
+    def step(ct, galois_keys_stack):
+        ct = ct.contiguous()
+        if plain0 is not None:
+            ct_ntt = ntt_forward(ct, tables)                               # both components
+            acc = dyadic_product(ct_ntt, plain0, limbs)
+            c0_ntt, acc0, acc1 = ct_ntt[..., 0, :, :], acc[..., 0, :, :], acc[..., 1, :, :]
+        else:
+            c0_ntt = ntt_forward(ct[..., 0, :, :].contiguous(), tables)
+            acc0 = acc1 = None
+        if R:
+            ct_k = compute_modup_digits(ct[..., 1, :, :], plan, False)     # hoisted once
+            a0, a1 = batched_rotated_inner_product(ct_k, rot_tabs, galois_keys_stack, plan)
+            ext = plan.ext_limbs
+            raw = torch.stack([_contract(a.unsqueeze(-4), pte, ext).squeeze(-3)
+                               for a in (a0, a1)], dim=-3)                  # [..., 2, n_ext, N]
+            rc = galois_permute(c0_ntt.contiguous(), rot_tabs)              # [..., R, L, N]
+            p0 = _contract(rc.unsqueeze(-4), ptc, limbs).squeeze(-3)
+            acc0 = p0 if acc0 is None else add_poly(acc0.contiguous(), p0, limbs)
+            d = rescale_special(raw, plan, is_ntt_output=True)
+            acc0 = add_poly(acc0, d[..., 0, :, :].contiguous(), limbs)
+            d1 = d[..., 1, :, :]
+            acc1 = d1 if acc1 is None else add_poly(acc1.contiguous(), d1.contiguous(), limbs)
+        return ntt_inverse(torch.stack([acc0, acc1], dim=-3), tables)
+
+    return step
+
+
+def build_ckks_logreg(context: SealContext, weights, intercept: float, scale: float, encoder,
+                      parms_id=None, device=None):
+    """Encrypted logistic-regression inference p = sigma(w . x + b) with the
+    degree-3 sigmoid 0.5 + 0.197 z - 0.004 z^3 (the JAX package's
+    build_ckks_logreg), over four levels: the plaintext product w (*) x and
+    rescale, a log2 rotation tree summing the feature slots, + b, the
+    square z^2 (multiply + relinearize + rescale), u = a3 z^2 + a1
+    (plaintext product at the prime q[2] as its scale, rescale), z * u
+    (multiply + relinearize + rescale), + 0.5.
+
+    weights: F feature weights.  Returns (fn, out_parms_id, out_scale,
+    rot_steps): fn(x, galois_keys_stack, relin_key) -> int64[..., 2, L-4,
+    N], slot 0 decrypting to sigma(w . x + b); Galois keys for the
+    power-of-two rot_steps, in that order.
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    cd0 = context.get_context_data(parms_id)
+    F = len(list(weights))
+    m = max(1, int(np.ceil(np.log2(max(F, 2)))))
+    slots = cd0.parms.poly_modulus_degree // 2
+    if (1 << m) > slots:
+        raise ValueError("feature count does not fit in the slot count")
+    cds = [cd0]
+    for _ in range(4):
+        nxt = cds[-1].next_context_data
+        if nxt is None:
+            raise ValueError("modulus chain too short for logreg (needs 5)")
+        cds.append(nxt)
+    cd1, cd2, cd3, cd4 = cds[1:]
+    q = [c.parms.coeff_modulus[-1].value for c in cds[:4]]
+
+    w_full = np.zeros(slots, dtype=np.float64)
+    w_full[:F] = np.asarray(list(weights), dtype=np.float64)
+    w_pt = encoder.encode(w_full.tolist(), scale, parms_id).data
+    s1 = float(scale) * float(scale) / q[0]            # z at cd1
+    b_pt = encoder.encode(float(intercept), s1, cd1.parms_id).data
+    s2 = s1 * s1 / q[1]                                # z^2 at cd2
+    A1, A3 = 0.197, -0.004
+    a3_pt = encoder.encode(A3, float(q[2]), cd2.parms_id).data
+    su = s2 * float(q[2]) / q[2]                       # u at cd3
+    a1_pt = encoder.encode(A1, su, cd3.parms_id).data
+    out_scale = s1 * su / q[3]
+    half_pt = encoder.encode(0.5, out_scale, cd4.parms_id).data
+
+    limbs1 = cd1.limb_constants
+    L3 = len(cd3.parms.coeff_modulus)
+    plan1 = KeySwitchPlan(context, cd1.parms_id)
+    tool1 = cd1.galois_tool
+    rot_steps = [1 << i for i in range(m)]
+    elts = [tool1.get_elt_from_step(s) for s in rot_steps]
+    tool1.ntt_tables(elts)
+    sq = build_ckks_mul_relin_rescale(context, cd1.parms_id, square=True, device=device)
+    mul3 = build_ckks_mul_relin_rescale(context, cd3.parms_id, device=device)
+
+    def step(x, galois_keys_stack, relin_key):
+        t = _plain_mul_rescale(x, w_pt, cd0)                        # w (*) x at cd1
+        for i, elt in enumerate(elts):                              # slot-sum tree
+            t = add_poly(t, _rotate_by_key(t, tool1, elt, galois_keys_stack[i], plan1, limbs1),
+                         limbs1)
+        z = _plain_add_c0(t, b_pt, limbs1)
+        u = _plain_add_c0(_plain_mul_rescale(sq(z, relin_key), a3_pt, cd2), a1_pt,
+                          cd3.limb_constants)
+        y = mul3(z[..., :L3, :], u, relin_key)                      # z dropped to cd3
+        return _plain_add_c0(y, half_pt, cd4.limb_constants)
+
+    return step, cd4.parms_id, out_scale, rot_steps
+
+
+def build_ckks_logreg_train_step(context: SealContext, m: int, F: int, labels, alpha: float,
+                                 scale: float, encoder, parms_id=None, device=None):
+    """One encrypted gradient-descent iteration of logistic regression with
+    X and w both encrypted (the JAX package's
+    build_ckks_logreg_train_step): w' = w - alpha X^T (sigma3(X w) - y).
+
+    Sample i fills slot block [i*Bf, (i+1)*Bf) (Bf the power of two >= F)
+    with its features; w is replicated in every block.  Four ciphertext
+    products and two masked rotation trees (in-block sums at levels 1 and 2,
+    cross-block sums at levels 6 and 7) take seven levels; w' comes out
+    replicated per block at the input scale.
+
+    Returns (fn, out_parms_id, out_scale, rot_steps): fn(X, w,
+    galois_keys_stack, relin_key) -> int64[..., 2, L-7, N], with Galois keys
+    for the signed rot_steps, stacked in that order.
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    cd0 = context.get_context_data(parms_id)
+    slots = cd0.parms.poly_modulus_degree // 2
+    b = max(1, int(np.ceil(np.log2(max(F, 2)))))
+    Bf = 1 << b
+    lm = max(1, int(np.ceil(np.log2(max(m, 2)))))
+    if (1 << lm) * Bf > slots:
+        raise ValueError("m x F packing does not fit in the slot count")
+    labels = list(labels)
+    if len(labels) != m:
+        raise ValueError("labels must have m entries")
+    cds = [cd0]
+    for _ in range(7):
+        nxt = cds[-1].next_context_data
+        if nxt is None:
+            raise ValueError("modulus chain too short (needs 8 levels)")
+        cds.append(nxt)
+    q = [c.parms.coeff_modulus[-1].value for c in cds[:7]]
+    L = [len(c.parms.coeff_modulus) for c in cds]
+    limbs = [c.limb_constants for c in cds]
+    tools = {i: cds[i].galois_tool for i in (1, 2, 6, 7)}
+    plans = {i: KeySwitchPlan(context, cds[i].parms_id) for i in (1, 2, 6, 7)}
+
+    # the scale ladder: the output lands at the input scale
+    sc = float(scale)
+    s1 = sc * sc / q[0]                      # u = X (*) w at L1
+    sz2 = s1 * s1 / q[2]                     # z^2 at L3
+    sv = s1 * sz2 / q[4]                     # v = z (c3 z^2 + c1) at L5
+    sp = sv * sc / q[5]                      # p = d (*) X at L6
+    alpha_scale = q[6] * sc / sp             # alpha g lands at sc
+    A1, A3 = 0.197, -0.004
+    mask1 = np.zeros(slots)
+    mask1[::Bf] = 1.0
+    mask1_pt = encoder.encode(mask1.tolist(), float(q[1]), cds[1].parms_id).data
+    c3_pt = encoder.encode(A3, float(q[3]), cds[3].parms_id).data
+    c1_pt = encoder.encode(A1, sz2, cds[4].parms_id).data
+    c0y = np.zeros(slots)                    # 0.5 - y per block, 0 past m
+    for i in range(min(m, slots // Bf)):
+        c0y[i * Bf:(i + 1) * Bf] = 0.5 - labels[i]
+    c0y_pt = encoder.encode(c0y.tolist(), sv, cds[5].parms_id).data
+    mask2 = np.zeros(slots)
+    mask2[:Bf] = float(alpha)
+    mask2_pt = encoder.encode(mask2.tolist(), alpha_scale, cds[6].parms_id).data
+
+    mul0 = build_ckks_mul_relin_rescale(context, cds[0].parms_id, device=device)
+    sq2 = build_ckks_mul_relin_rescale(context, cds[2].parms_id, square=True, device=device)
+    mul4 = build_ckks_mul_relin_rescale(context, cds[4].parms_id, device=device)
+    mul5 = build_ckks_mul_relin_rescale(context, cds[5].parms_id, device=device)
+
+    tree_steps = [1 << j for j in range(b)]
+    spread_steps = [-(1 << j) for j in range(b)]
+    xtree_steps = [Bf << j for j in range(lm)]
+    xspread_steps = [-(Bf << j) for j in range(lm)]
+    rot_steps = tree_steps + spread_steps + xtree_steps + xspread_steps
+    key_idx = {s: i for i, s in enumerate(rot_steps)}
+    elt_of = {}
+    for lvl, ss in ((1, tree_steps), (2, spread_steps), (6, xtree_steps), (7, xspread_steps)):
+        for s in ss:
+            elt_of[lvl, s] = tools[lvl].get_elt_from_step(s)
+        tools[lvl].ntt_tables([elt_of[lvl, s] for s in ss])
+
+    def tree(x, ss, lvl, keys):
+        for s in ss:
+            x = add_poly(x, _rotate_by_key(x, tools[lvl], elt_of[lvl, s], keys[key_idx[s]],
+                                           plans[lvl], limbs[lvl]), limbs[lvl])
+        return x
+
+    def step(X, w, galois_keys_stack, relin_key):
+        gk = galois_keys_stack
+        u = tree(mul0(X, w, relin_key), tree_steps, 1, gk)            # in-block sum, L1
+        z = tree(_plain_mul_rescale(u, mask1_pt, cds[1]), spread_steps, 2, gk)  # L2, s1
+        z2 = sq2(z, relin_key)                                         # L3, sz2
+        up = _plain_add_c0(_plain_mul_rescale(z2, c3_pt, cds[3]), c1_pt, limbs[4])
+        v = mul4(z[..., :L[4], :], up, relin_key)                      # L5, sv
+        d = _plain_add_c0(v, c0y_pt, limbs[5])                         # sigma(z) - y
+        p = tree(mul5(d, X[..., :L[5], :], relin_key), xtree_steps, 6, gk)  # cross-block
+        ga = tree(_plain_mul_rescale(p, mask2_pt, cds[6]), xspread_steps, 7, gk)  # L7
+        return sub_poly(w[..., :L[7], :].contiguous(), ga, limbs[7])
+
+    return step, cds[7].parms_id, sc, rot_steps
+
+
+def build_ckks_inverse(context: SealContext, scale: float, encoder, iters: int = 4,
+                       parms_id=None, device=None):
+    """Encrypted reciprocal 1/a by Goldschmidt iteration (the JAX package's
+    build_ckks_inverse): x_0 = 2 - a, e_0 = 1 - a, e_{k+1} = e_k^2,
+    x_{k+1} = x_k (1 + e_{k+1}), so a x_m = 1 - e_0^(2^(iters+1)) for slot
+    values a in (0, 2).  The e-square chain runs one level ahead of the
+    x-multiply chain, iters + 1 levels in all.
+
+    Returns (fn, out_parms_id, out_scale): fn(ct_a, relin_key) with ct_a at
+    `scale`.
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    if iters < 1:
+        raise ValueError("need at least one iteration")
+    ids = [parms_id]
+    for _ in range(iters + 1):
+        nxt = context.get_context_data(ids[-1]).next_context_data
+        if nxt is None:
+            raise ValueError(f"modulus chain too short: inverse needs {iters + 1} levels")
+        ids.append(nxt.parms_id)
+    cds = [context.get_context_data(i) for i in ids]
+    limbs = [c.limb_constants for c in cds]
+    q = [float(c.parms.coeff_modulus[-1].value) for c in cds]
+    Ls = [len(c.parms.coeff_modulus) for c in cds]
+    sqs = [build_ckks_mul_relin_rescale(context, ids[k], square=True, device=device)
+           for k in range(iters)]            # e_k -> e_{k+1} at level k
+    muls = [build_ckks_mul_relin_rescale(context, ids[k + 1], device=device)
+            for k in range(iters)]           # x_k -> x_{k+1} at level k+1
+    sig_e = [float(scale)]
+    for k in range(iters):
+        sig_e.append(sig_e[k] * sig_e[k] / q[k])
+    sig_x = [float(scale)]
+    for k in range(iters):
+        sig_x.append(sig_x[k] * sig_e[k + 1] / q[k + 1])
+    two0 = encoder.encode(2.0, sig_x[0], ids[0]).data
+    one0 = encoder.encode(1.0, sig_e[0], ids[0]).data
+    ones = [encoder.encode(1.0, sig_e[k + 1], ids[k + 1]).data for k in range(iters)]
+
+    def step(ct_a, relin_key):
+        neg = negate_poly(ct_a.contiguous(), limbs[0])           # -a, both components
+        x = _plain_add_c0(neg, two0, limbs[0])                    # 1 + e_0, level 0
+        e = _plain_add_c0(neg, one0, limbs[0])                    # e_0, level 0
+        for k in range(iters):
+            e = sqs[k](e, relin_key)                              # e_{k+1}, level k+1
+            factor = _plain_add_c0(e, ones[k], limbs[k + 1])      # 1 + e_{k+1}
+            x = muls[k](x[..., :Ls[k + 1], :], factor, relin_key)
+        return x                                                  # level iters + 1
+
+    return step, ids[iters + 1], sig_x[iters]

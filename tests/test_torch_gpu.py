@@ -11,9 +11,11 @@ hoisted rotations in both key forms, the BFV steps and rotations and the
 deep polynomial against the plain path, keygen, encryption and
 decryption at N=32768, the negacyclic monomial multiply (both modes), the
 centred norm and the Barrett-64 reduction of ops/dyadic.py, the per-op
-Evaluator's ex1 chain at N=4096 against the plain path, and K12's passes of
+Evaluator's ex1 chain at N=4096 against the plain path, K12's passes of
 the four-step int8 NTT (ops/ntt_mxu.py) against their plain versions and
-K1.  They need a CUDA card and skip without one; on a machine with
+K1, and the model zoo's dense layer (both matvec forms), MLP,
+multi-channel convolution and BFV matvec at N=1024 against the same
+builders on the CPU.  They need a CUDA card and skip without one; on a machine with
 an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
@@ -1464,6 +1466,41 @@ def test_ntt_mxu_round_trip(card, log_n, bits):
     assert torch.equal(tmx.ntt_forward_mxu(tmx.ntt_inverse_mxu(x, mx), mx), x)
 
 
+@pytest.mark.parametrize("log_n,bits", [(10, (54, 54)), (13, (50, 40, 40, 50)),
+                                        (14, (50, 40, 40, 40, 40, 50))])
+def test_ntt_mxu_kernel_from_a_new_thread(card, log_n, bits):
+    """K12 launched from a thread whose first CUDA call it is (a server's
+    worker, a data loader), after the main thread has launched it: the
+    tensor-map encode needs the context that the runtime makes current on
+    a thread only at its first runtime call.  Both directions equal their
+    plain versions, as they do from the main thread."""
+    import threading
+
+    mods, mx, _ = _mxu(log_n, list(bits), card)
+    xt = to_tensor(_res(np.random.default_rng(11), mods, (3, 2), 1 << log_n, 2), card)
+    first = tmx.ntt_forward_mxu(xt, mx)
+    box = {}
+
+    def run():
+        try:
+            box["out"] = (tmx.ntt_forward_mxu(xt, mx), tmx.ntt_inverse_mxu(xt, mx))
+            torch.cuda.synchronize()
+        except BaseException as exc:  # raised on the main thread below
+            box["err"] = exc
+
+    before = cuda.LAUNCHES["ntt_mxu"]
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    if "err" in box:
+        raise box["err"]
+    assert cuda.LAUNCHES["ntt_mxu"] == before + 4
+    with plain_versions():
+        want = (tmx.ntt_forward_mxu(xt, mx), tmx.ntt_inverse_mxu(xt, mx))
+    assert torch.equal(box["out"][0], want[0]) and torch.equal(box["out"][1], want[1])
+    assert torch.equal(first, want[0])
+
+
 def test_ntt_mxu_unbuilt_kernel_raises(card, monkeypatch, tmp_path):
     """With no build of K12 and no compiler, a CUDA tensor raises: nothing
     falls back to the plain version."""
@@ -1549,3 +1586,84 @@ def test_infty_norm_kernel_refuses_more_limbs_than_a_launch_takes(card):
     x = to_tensor(_res(np.random.default_rng(0), mods, (1,), 64), card)
     with pytest.raises(ValueError, match="65 limbs"):
         dyadic.poly_infty_norm(x, limbs)
+
+
+def _zoo_context(scheme, device):
+    parms = T.EncryptionParameters(scheme)
+    parms.set_poly_modulus_degree(1024)
+    if scheme == T.SchemeType.BFV:
+        parms.set_coeff_modulus(T.CoeffModulus.create(1024, [40, 40, 40]))
+        parms.set_plain_modulus(T.PlainModulus.batching(1024, 20))
+    else:
+        parms.set_coeff_modulus(T.CoeffModulus.create(1024, [50, 40, 40, 40, 50]))
+    parms.set_random_seed(tuple(range(8)))
+    return T.SealContext(parms, sec_level=T.SecLevelType.none, device=device)
+
+
+@pytest.mark.parametrize("form", ["dense_hoisted", "dense_bsgs", "mlp", "conv2d_mc",
+                                  "bfv_matvec"])
+def test_zoo_builders_match_cpu(card, form):
+    """The model zoo's builders at N=1024 on the card against the same
+    builders on the CPU (plain versions), bit for bit, with keys and the
+    batch-2 input made on the CPU; every kernel call on the card sees
+    contiguous tensors (torch_helpers.contiguous_calls, and the wrappers'
+    own check)."""
+    from torch_helpers import contiguous_calls
+
+    bfv = form == "bfv_matvec"
+    scheme = T.SchemeType.BFV if bfv else T.SchemeType.CKKS
+    devs = ("cpu", card)
+    ctxs = {d: _zoo_context(scheme, d) for d in devs}
+    kg = T.KeyGenerator(ctxs["cpu"], device="cpu")
+    tool = ctxs["cpu"].first_context_data().galois_tool
+    rng = np.random.default_rng(21)
+    n, slots = 1024, 512
+    if bfv:
+        cods = {d: T.BatchEncoder(ctxs[d], device=d) for d in devs}
+        M = rng.integers(0, 1 << 16, size=(8, 8))
+        diags = {d: [int(M[i % 8, (i + d) % 8]) for i in range(n)] for d in range(8)}
+        fns = {d: T.build_bfv_matvec(ctxs[d], diags, cods[d], device=d) for d in devs}
+        steps = list(range(1, 8))
+        pt = cods["cpu"].encode(rng.integers(0, 1 << 16, size=n).tolist())
+    else:
+        cods = {d: T.CKKSEncoder(ctxs[d], device=d) for d in devs}
+        M = rng.uniform(-0.5, 0.5, size=(8, 8))
+        diags = {d: [M[i % 8, (i + d) % 8] for i in range(slots)] for d in range(8)}
+        bias = rng.uniform(-0.2, 0.2, size=slots).tolist()
+        if form.startswith("dense"):
+            fns = {d: T.build_ckks_dense_layer(ctxs[d], diags, bias, 2.0 ** 40, cods[d],
+                                               bsgs=form == "dense_bsgs", device=d)[0]
+                   for d in devs}
+            steps = fns["cpu"].rot_steps
+        elif form == "mlp":
+            layers = [(diags, bias, "square"), (diags, bias, None)]
+            fns = {d: T.build_ckks_mlp(ctxs[d], layers, 2.0 ** 40, cods[d], device=d)[0]
+                   for d in devs}
+            steps = fns["cpu"].rot_steps[0]
+        else:
+            K = rng.uniform(-0.4, 0.4, size=(2, 2, 3, 3))
+            fns = {d: T.build_ckks_conv2d_mc(ctxs[d], K, 8, 8, 2.0 ** 40, cods[d],
+                                             activation="square", periodic=True, device=d)[0]
+                   for d in devs}
+            steps = fns["cpu"].rot_steps
+        pt = cods["cpu"].encode(rng.uniform(-1, 1, size=slots).tolist(), 2.0 ** 40)
+    ct = T.Encryptor(ctxs["cpu"], kg.public_key(), device="cpu").encrypt(pt)
+    a = torch.stack([ct.data] * 2)
+    elts = tool.get_elts_from_steps(steps)
+    gk = kg.galois_keys(elts).stacked(*elts)
+    rk = kg.relin_keys().stacked(2)
+
+    def call(d, *args):
+        if bfv:
+            return fns[d](args[0], args[1])
+        return fns[d](args[0], [args[1]] * 2 if form == "mlp" else args[1], args[2])
+
+    want = call("cpu", a, gk, rk)
+    before = cuda.LAUNCHES.copy()
+    with contiguous_calls():
+        got = call(card, a.to(card), gk.to(card), rk.to(card))
+    torch.cuda.synchronize()
+    launched = {k: cuda.LAUNCHES[k] - before[k] for k in before}
+    assert launched["ntt"] and launched["contract"] and launched["galois"]
+    assert launched["tensor_product"] == (0 if bfv else 1)     # one square at most
+    assert torch.equal(got.cpu(), want)

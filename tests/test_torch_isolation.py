@@ -7,7 +7,7 @@ leaves jax out of sys.modules, and so does importing the multi-device
 schedules of parallel/, K11's ops/ntt_sp.py and K12's ops/ntt_mxu.py;
 every kernel source (K1-K12) is registered and documented; with no card
 present an entry point called without ``device`` raises; and
-chip_smoke.py's CPU rehearsal runs its twenty-four paths end to end.
+chip_smoke.py's CPU rehearsal runs its thirty paths end to end.
 """
 
 import ast
@@ -118,6 +118,17 @@ def test_entry_points_default_to_the_card():
     cds = [ctx.first_context_data()]
     for make in (lambda: T.build_ckks_matvec(ctx, diags, 2.0 ** 20, encoder),
                  lambda: T.build_ckks_matvec_bsgs(ctx, diags, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_dense_layer(ctx, diags, [0.0], 2.0 ** 20, encoder,
+                                                  activation=None),
+                 lambda: T.build_ckks_mlp(ctx, [(diags, [0.0], None)], 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_conv2d(ctx, [[0.5]], 2, 2, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_conv2d_mc(ctx, [[[[0.5]]]], 2, 2, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_cnn(ctx, [], [(diags, [0.0], None)], 2, 2, 2.0 ** 20,
+                                          encoder),
+                 lambda: T.build_ckks_logreg(ctx, [0.5], 0.0, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_logreg_train_step(ctx, 2, 2, [0, 1], 0.1, 2.0 ** 20,
+                                                        encoder),
+                 lambda: T.build_ckks_inverse(ctx, 2.0 ** 20, encoder, iters=1),
                  lambda: build_ckks_bootstrap(ctx, 2.0 ** 20, encoder),
                  lambda: ChebyEvalMod(ctx, cds, [1], [None], [1], encoder, 0, 2.0 ** 20,
                                       [0.0, 1.0], 1, False),
@@ -163,6 +174,7 @@ def test_bfv_entry_points_default_to_the_card():
                  lambda: T.build_bfv_mul_relin_modswitch(ctx, fused_drop=False),
                  lambda: T.build_bfv_rotate_many(ctx, [1, 2]),
                  lambda: T.build_bfv_rotate_many(ctx, [1], prepermuted_keys=True),
+                 lambda: T.build_bfv_matvec(ctx, {1: [1]}, None),
                  lambda: T.IntegerEncoder(ctx),
                  lambda: T.Evaluator(ctx),
                  lambda: T.DeviceEvaluator(ctx)):
@@ -190,7 +202,8 @@ def test_chip_smoke_cpu_rehearsal():
                      "bfv_multiply_n4096", "bfv_rotate_rows", "bfv_rotate_columns",
                      "bfv_rotate_many", "bfv_rotate_many_prepermuted",
                      "ckks_mul_relin_rescale_n16384", "ckks_poly_eval_n32768", "n65536",
-                     "bootstrap_n4096", "dense8x8_n8192"]
+                     "bootstrap_n4096", "dense8x8_n8192", "dense_layer8x8_n8192",
+                     "dense_layer8x8_bsgs_n8192", "cnn16x16_n4096", "bfv_matvec8x8_n8192"]
     paths = [json.loads(l) for l in lines if '"main_path"' in l]
     assert [p["path"] for p in paths] == ["mul_relin_rescale", "train_step", "rotate_many",
                                           "bfv_mul_relin_chain", "bfv_mul_relin",
@@ -204,7 +217,10 @@ def test_chip_smoke_cpu_rehearsal():
                                           "ckks_mul_relin_rescale_csp4_n16384",
                                           "ckks_mul_relin_rescale_limb4_n4096",
                                           "bfv_mul_relin_behz4_n8192", "matvec_limb4_n4096",
-                                          "ntt_mxu_n16384", "ntt_mxu_n8192"]
+                                          "ntt_mxu_n16384", "ntt_mxu_n8192",
+                                          "dense_layer8x8_n8192", "cnn16x16_n4096",
+                                          "bfv_matvec8x8_n8192", "logreg_train_m64_f16_n8192",
+                                          "logreg_f16_n8192", "inverse_ex14_n256"]
     assert all(p["decode_exact"] for p in paths[3:7])
     assert paths[6]["key_forms_decode_equal"]
     assert paths[2]["max_abs_decode_diff_between_key_forms"] < 1e-5
@@ -233,6 +249,17 @@ def test_chip_smoke_cpu_rehearsal():
     # the four-step int8 NTT at N=1024: equal to K1 both ways, exact round trip
     for p in paths[22:24]:
         assert p["equal_to_k1"] == {"forward": True, "inverse": True, "round_trip": True}, p
+    # the model zoo: each decode within its source's tolerance (the CNN's
+    # batch rows equal), the BFV matvec exact, the train step at the input scale
+    assert paths[24]["max_abs_decode_err"] < 1e-3
+    assert paths[25]["max_abs_decode_err"] < 1e-2 and paths[25]["rows_equal"]
+    assert paths[26]["decode_exact"]
+    assert paths[27]["max_abs_decode_err"] < 1e-2 and paths[27]["out_scale_is_input_scale"]
+    assert paths[28]["max_abs_decode_err"] < 1e-2
+    assert paths[29]["max_abs_decode_err"] < 2e-2 and paths[29]["levels_consumed"] == 5
+    for form in [json.loads(l) for l in lines if '"batch2"' in l][20:]:
+        assert form["equal_to_plain"] and (form.get("decode_exact")
+                                           or form["max_abs_decode_err"] < 1e-2), form
     assert [json.loads(l)["ran"] for l in lines if '"nccl"' in l] == [False]
 
 
