@@ -5,8 +5,8 @@
     python3 chip_smoke.py --cpu-rehearsal  # small rings on the CPU, plain versions
     python3 chip_smoke.py --nccl-only      # on four cards: only the NCCL phase
 
-Thirty paths run, each driven once with every launch counter set to 0 just
-before it and read just after it.  Three are CKKS, on bench.py's ring
+Thirty-four paths run, each driven once with every launch counter set to 0
+just before it and read just after it.  Three are CKKS, on bench.py's ring
 (N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
 seed range(71, 79), scale 2^40):
 
@@ -146,6 +146,26 @@ rings, batch 16 (keygen in each source's order, parms seed range(8)):
   x 11, 50]); the step is build_ckks_inverse's four Goldschmidt iterations;
   within ex14's 2e-2 of softmax(x).
 
+Four are the comparison builders, the encrypted matmul and encrypted
+attention at bench_all.py's cells, batch 16, keygen in bench_all's order
+(parms seed range(8), scale 2^40):
+
+- relu_n8192 (bench_all.py:659-687): N=8192, [50, 40 x 13, 50], relin key
+  only, slots from default_rng(7) in [-1, 1]; within 1e-2 of x (1 +
+  sign_composite_reference(x)) / 2, batch row 0 with the JAX package's
+  digests (RELU_N8192); on the same keys build_ckks_max (within 2e-2 of
+  np.maximum where |a - b| >= 0.1) and build_ckks_sqrt with iters=3 (2e-3
+  relative) at batch 2, checked and not timed;
+- matmul_d32_n2048 (bench_all.py:510-546): N=2048, [50, 40 x 4, 50], A and
+  B from default_rng(5) in [-1, 1], 93 rotation keys; within 1e-2 of A @ B;
+- attention_d32_n2048 and attention_d16_n512 (bench_all.py:549-613): N =
+  2 d^2 on attention_plan(d)'s chain, Q, K and V from default_rng(23) in
+  [-0.5, 0.5]; within 1e-2 of the numpy softmax attention; the keygen line
+  gives the rotation stack's bytes (1.9 GB at d=32); d=16 has the JAX
+  package's digests (ATTENTION_D16_N512), is checked and not timed (the
+  script's time budget), and runs four heads of d=8 at batch 2 with their
+  own keys (within 1e-3 of each head's attention).
+
 With four cards an NCCL phase runs the csp4 and limb4 steps, one process
 per card, against the single-card step; with fewer it says so.
 
@@ -194,8 +214,9 @@ The script
    against the port's plain path on the card, bit for bit, and each one's
    decode (with BFV rotate_columns);
 6. times each step at its full batch (ops/s or rotations/s, and the NTT
-   rates of configs 4 and N=65536; ex14's reciprocal is checked, not
-   timed), the two key forms of each hoisted rotation in turns, and
+   rates of configs 4 and N=65536; ex14's reciprocal, max, sqrt and the
+   d=16 attention are checked, not timed; the relu, matmul and d=32
+   attention rates are over 10 steps), the two key forms of each hoisted rotation in turns, and
    profiles each (device time by kernel, device
    busy share), with the recorder removed; then each op of the per-op API
    (median host ms over 20 waited calls, device ms and busy share) and
@@ -289,12 +310,24 @@ PATH_KERNELS.update({
     "inverse_ex14_n256": ("ntt", "tensor_product", "contract", "elementwise",
                           "contract:broadcast"),
 })
+# the comparison builders', the matmul's and attention's paths, one more
+# update (a larger literal would deepen the module's frame)
+PATH_KERNELS.update({
+    "relu_n8192": ("ntt", "tensor_product", "contract", "elementwise", "contract:broadcast"),
+    "matmul_d32_n2048": ("ntt", "contract", "elementwise", "galois", "contract:broadcast",
+                         "contract:pairwise"),
+    "attention_d32_n2048": ("ntt", "tensor_product", "contract", "elementwise", "galois",
+                            "contract:broadcast", "contract:pairwise"),
+    "attention_d16_n512": ("ntt", "tensor_product", "contract", "elementwise", "galois",
+                           "contract:broadcast", "contract:pairwise"),
+})
 # paths whose step repeats a call shape many times: each distinct call is
 # timed once and its time counted for every call of that shape
 TIME_ONCE = ("bootstrap_n4096", "per_op_bfv_n4096", "per_op_bfv_n8192_levels", "per_op_ckks",
              "device_evaluator_n8192", "dense_layer8x8_n8192", "cnn16x16_n4096",
              "bfv_matvec8x8_n8192", "logreg_train_m64_f16_n8192", "logreg_f16_n8192",
-             "inverse_ex14_n256")
+             "inverse_ex14_n256", "relu_n8192", "matmul_d32_n2048", "attention_d32_n2048",
+             "attention_d16_n512")
 
 # bench_all.py's bootstrap cell (bench_all.py:445-508) run by the JAX package
 # eagerly on the CPU (tests/test_torch_bootstrap.py::test_bench_all_cell_digests
@@ -320,6 +353,28 @@ CNN16X16_N4096 = {
     "output_sha256": "c143cc5b40e3a81c8c4a08b958bc122e00e9bb3e5bc9498eacc313b6485eecbf",
     "max_err": 3.776321932024915e-09,
     "rot_steps_lengths": [8, 6, 5],
+}
+# bench_all.py's relu cell (bench_all.py:659-687: N=8192, [50, 40 x 13, 50],
+# relin key only, slots from default_rng(7) in [-1, 1]) and its d=16
+# attention cell (bench_all.py:549-613: N=512, [50] + [40] x 19 + [50], Q, K
+# and V from default_rng(23) in [-0.5, 0.5]) run by the JAX package eagerly on
+# the CPU (tests/test_torch_compare.py::test_relu_n8192_digests and
+# tests/test_torch_attention.py::test_attention_d16_n512_digests recompute
+# these): the sha256 of the input's u64 residues (the attention's Q, K^T and V
+# stacked) and of the output's (one ciphertext), the max decode error against
+# x (1 + sign_composite_reference(x)) / 2 and the numpy softmax attention, and
+# the count of rotation steps
+RELU_N8192 = {
+    "input_sha256": "fb5e741285cfecb593395c673d9f0001258795c5b90cbee530f364fe9d324077",
+    "output_sha256": "104614fe48e4664417bc0387a01c95e1a63570244fd486e9554497a4dcf2547b",
+    "max_err": 1.1149098970431037e-08,
+    "rot_steps": 0,
+}
+ATTENTION_D16_N512 = {
+    "input_sha256": "0141a6b9431a22e609abfae4b76a477c95414f214bb228bbcbaddc672836943a",
+    "output_sha256": "22f6bce61243636189f0fb1ad1c55339d121b7d6df9a7f877a1f77798e6fd500",
+    "max_err": 4.2044394527686324e-05,
+    "rot_steps": 60,
 }
 # The SEAL per-op API's flows run by the JAX package's host Evaluator on the
 # CPU (parms seed range(8)): the sha256 of the final ciphertext's u64
@@ -370,11 +425,29 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# (flag, library) -> cuobjdump's listing
+_LISTINGS = {}
+
+
 def cuobjdump(cuda, flag: str, lib_path: str) -> str:
-    """cuobjdump's (beside nvcc) `flag` listing of a built kernel library."""
+    """cuobjdump's (beside nvcc) `flag` listing of a built kernel library.
+    The first call lists every built library both ways (-sass and
+    -res-usage), one process each, all started together; later calls read
+    those listings."""
     tool = os.path.join(os.path.dirname(cuda._nvcc()), "cuobjdump")
-    return subprocess.run([tool, flag, lib_path], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
+    if not _LISTINGS:
+        procs = {(f, r["path"]): subprocess.Popen([tool, f, r["path"]], stdout=subprocess.PIPE,
+                                                  stderr=subprocess.PIPE, text=True)
+                 for r in cuda.BUILD_REPORT.values() for f in ("-sass", "-res-usage")}
+        for (f, path), proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise subprocess.CalledProcessError(proc.returncode, [tool, f, path], out, err)
+            _LISTINGS[f, path] = out
+    if (flag, lib_path) not in _LISTINGS:
+        _LISTINGS[flag, lib_path] = subprocess.run([tool, flag, lib_path], capture_output=True,
+                                                   text=True, check=True, timeout=300).stdout
+    return _LISTINGS[flag, lib_path]
 
 
 # each kernel whose instantiations the build line lists: the mangled name's
@@ -785,12 +858,17 @@ def profile_steps(torch, fn, steps: int, step_ms: float, all_threads: bool = Fal
     device-side events only, so an operator and its kernel are not counted
     twice) and the device's busy share of the unprofiled step time.
     all_threads: record the host ranges of every thread (the ranks of a
-    ThreadGroup), where this torch's profiler offers it."""
+    ThreadGroup), where this torch's profiler offers it; only then are the
+    host's operators recorded too (their "gst_exchange" ranges): they read
+    no device time and cost the profiler 3-4x its time
+    (port_tools/profile_probe.py)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     kw = {}
+    activities = [ProfilerActivity.CUDA]
     if all_threads:
+        activities.insert(0, ProfilerActivity.CPU)
         try:
             from torch._C._profiler import _ExperimentalConfig
 
@@ -799,7 +877,7 @@ def profile_steps(torch, fn, steps: int, step_ms: float, all_threads: bool = Fal
             pass
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
+    with profile(activities=activities, **kw) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
@@ -1113,14 +1191,15 @@ def infty_norm_call(torch, a, limbs):
 
 
 def steady(torch, fn, count: int):
-    """(count per second, iterations, seconds) of fn over about 3 s."""
+    """(count per second, iterations, seconds) of fn over about 3 s, or
+    over fn.steps steps where fn names them."""
     fn()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     per = time.perf_counter() - t1
-    iters = max(5, min(200, int(3.0 / max(per, 1e-6))))
+    iters = getattr(fn, "steps", None) or max(5, min(200, int(3.0 / max(per, 1e-6))))
     t1 = time.perf_counter()
     for _ in range(iters):
         fn()
@@ -2819,16 +2898,276 @@ def main(argv=None) -> int:
         if not err_iv < 2e-2:
             raise AssertionError(f"inverse_ex14_n256's softmax decodes {err_iv} from softmax(x)")
 
+        def compare_paths(record, within):
+            """The comparison builders, the encrypted matmul and encrypted
+            attention at bench_all.py's relu, matmul and attention cells, batch
+            zb (the rehearsal: N=256, d=8 at N=128, d=4 at N=32 and d=8 at
+            N=128), keygen in bench_all's order, parms seed range(8), scale
+            2^40; max, sqrt and a four-head attention at batch 2, checked and
+            not timed."""
+            sc = 2.0 ** 40
+
+            def keygen_line(path, seconds, **extra):
+                keygen_s[path] = seconds
+                emit({"phase": "keygen", "path": path, "seconds": seconds, **extra})
+
+            def decode(cod, dec, o, pid, scale):
+                return np.asarray(cod.decode(dec.decrypt(T.Ciphertext(o.contiguous(), pid, True,
+                                                                      scale))))
+
+            def sha(t):
+                return hashlib.sha256(to_numpy(t).tobytes()).hexdigest()
+
+            # relu_n8192: bench_all.py's relu cell (bench_all.py:659-687), the
+            # composite sign's three stages and the gate multiply, 13 levels
+            n_rl = 256 if rehearsal else 8192
+            t0 = begin("relu_n8192")
+            set_phase("keygen")
+            ctx_rl, kg_rl, cod_rl, enc_rl, dec_rl = ckks_context(n_rl, [50] + [40] * 13 + [50])
+            t1 = time.perf_counter()
+            set_phase("build")
+            relu, pid_rl, sc_rl = T.build_ckks_relu(ctx_rl, sc, cod_rl, device=device)
+            mx, pid_mx, sc_mx = T.build_ckks_max(ctx_rl, sc, cod_rl, device=device)
+            sq, pid_sq, sc_sq = T.build_ckks_sqrt(ctx_rl, sc, cod_rl, iters=3, device=device)
+            set_phase("encode_encrypt")
+            slots_rl = cod_rl.slot_count
+            x_rl = np.random.default_rng(7).uniform(-1, 1, slots_rl)
+            ct_rl = enc_rl.encrypt(cod_rl.encode(x_rl.tolist(), sc))
+            a_rl = ct_rl.data.expand((zb,) + tuple(ct_rl.data.shape)).contiguous()
+            rng_mx = np.random.default_rng(23)
+            xa_mx, xb_mx = rng_mx.uniform(-0.5, 0.5, slots_rl), rng_mx.uniform(-0.5, 0.5, slots_rl)
+            x_sq = np.random.default_rng(29).uniform(0.5, 1.5, slots_rl)
+            ab_mx, bb_mx, ab_sq = (enc_rl.encrypt(cod_rl.encode(v.tolist(), sc)).data.expand(
+                (2,) + tuple(ct_rl.data.shape)).contiguous() for v in (xa_mx, xb_mx, x_sq))
+            t2 = time.perf_counter()
+            set_phase("keygen")
+            rk_rl = kg_rl.relin_keys().stacked(2)
+            keygen_line("relu_n8192", time.perf_counter() - t2 + t1 - t0)
+            set_phase("step")
+            out_rl, per_step_rl = count_step(relu, a_rl, rk_rl)
+            # max and sqrt at batch 2 on the same keys: each kernel call checked
+            set_phase("forms")
+            out_mx, launches_mx = count_step(mx, ab_mx, bb_mx, rk_rl)
+            out_sq, launches_sq = count_step(sq, ab_sq, rk_rl)
+            set_phase("decrypt_decode")
+            want_rl = x_rl * (1 + T.sign_composite_reference(x_rl)) / 2
+            gap_mx = np.abs(xa_mx - xb_mx) >= 0.1
+            want_mx = np.maximum(xa_mx, xb_mx)[gap_mx]
+
+            def relu_err(o):
+                return float(np.abs(decode(cod_rl, dec_rl, o, pid_rl, sc_rl) - want_rl).max())
+
+            def max_err2(o):
+                return float(np.abs(decode(cod_rl, dec_rl, o, pid_mx, sc_mx)[gap_mx]
+                                    - want_mx).max())
+
+            def sqrt_err2(o):
+                got = decode(cod_rl, dec_rl, o, pid_sq, sc_sq)
+                return {"max_abs_decode_err": float(np.abs(got - np.sqrt(x_sq)).max()),
+                        "max_rel_decode_err": float(np.abs(got / np.sqrt(x_sq) - 1.0).max())}
+
+            err_rl = max(relu_err(out_rl[0]), relu_err(out_rl[-1]))
+            err_mx = max_err2(out_mx[1])
+            err_sq = sqrt_err2(out_sq[1])
+            digests_rl = {"input_sha256": sha(ct_rl.data), "output_sha256": sha(out_rl[0])}
+            end("relu_n8192", t0, per_step_rl, out_shape=list(out_rl.shape), n=n_rl,
+                max_abs_decode_err=err_rl, rows_equal=bool(torch.equal(out_rl[0], out_rl[-1])),
+                forms={"max": {"launches": sum(by_label(launches_mx).values()),
+                               "max_abs_decode_err": err_mx},
+                       "sqrt": {"launches": sum(by_label(launches_sq).values()), **err_sq}},
+                **digests_rl)
+            if not (err_rl < 1e-2 and err_mx < 2e-2 and err_sq["max_rel_decode_err"] < 2e-3):
+                raise AssertionError(f"relu_n8192 decodes {err_rl} from x (1 + sign(x)) / 2, max "
+                                     f"{err_mx}, sqrt {err_sq}")
+            if not rehearsal and (digests_rl["input_sha256"] != RELU_N8192["input_sha256"]
+                                  or digests_rl["output_sha256"] != RELU_N8192["output_sha256"]
+                                  or relu_err(out_rl[0]) != RELU_N8192["max_err"]):
+                raise AssertionError(f"relu_n8192 differs from the JAX package's: {digests_rl}, "
+                                     f"max_err {relu_err(out_rl[0])}")
+            out = [
+                record("relu_n8192", "ckks_relu_n8192_ops_per_s", relu, (a_rl, rk_rl),
+                       per_step_rl, lambda d: within(relu_err(d[1]), 1e-2), steps=10),
+                record("max_n8192", None, mx, None, launches_mx,
+                       lambda d: within(max_err2(d[1]), 2e-2), (ab_mx, bb_mx, rk_rl), False),
+                record("sqrt_n8192", None, sq, None, launches_sq,
+                       lambda d: ((e := sqrt_err2(d[1]))["max_rel_decode_err"] < 2e-3, e),
+                       (ab_sq, rk_rl), False)]
+            del out_rl, out_mx, out_sq
+
+            # matmul_d32_n2048: bench_all.py's matmul cell (bench_all.py:510-546),
+            # the JKLS product of two 32 x 32 matrices, 3 levels, 93 rotation keys
+            d_mm = 8 if rehearsal else 32
+            n_mm = 2 * d_mm * d_mm
+            t0 = begin("matmul_d32_n2048")
+            set_phase("keygen")
+            ctx_mm, kg_mm, cod_mm, enc_mm, dec_mm = ckks_context(n_mm, [50, 40, 40, 40, 40, 50])
+            t1 = time.perf_counter()
+            set_phase("build")
+            mm, pid_mm, sc_mm = T.build_ckks_matmul_square(ctx_mm, d_mm, sc, cod_mm, device=device)
+            t2 = time.perf_counter()
+            set_phase("keygen")
+            elts_mm = ctx_mm.first_context_data().galois_tool.get_elts_from_steps(mm.rot_steps)
+            gk_mm = kg_mm.galois_keys(elts_mm).stacked(*elts_mm)
+            t3 = time.perf_counter()
+            set_phase("encode_encrypt")
+            rng_mm = np.random.default_rng(5)
+            A_mm = rng_mm.uniform(-1, 1, d_mm * d_mm)
+            B_mm = rng_mm.uniform(-1, 1, d_mm * d_mm)
+            a_mm, b_mm = (enc_mm.encrypt(cod_mm.encode(v.tolist(), sc)).data for v in (A_mm, B_mm))
+            a_mm = a_mm.expand((zb,) + tuple(a_mm.shape)).contiguous()
+            b_mm = b_mm.expand((zb,) + tuple(b_mm.shape)).contiguous()
+            t4 = time.perf_counter()
+            set_phase("keygen")
+            rk_mm = kg_mm.relin_keys().stacked(2)
+            keygen_line("matmul_d32_n2048", time.perf_counter() - t4 + t3 - t2 + t1 - t0,
+                      galois_keys=len(elts_mm), rotation_stack_bytes=gk_mm.numel() * 8,
+                      build_seconds=t2 - t1)
+            set_phase("step")
+            out_mm, per_step_mm = count_step(mm, a_mm, b_mm, gk_mm, rk_mm)
+            set_phase("decrypt_decode")
+            want_mm = (A_mm.reshape(d_mm, d_mm) @ B_mm.reshape(d_mm, d_mm)).reshape(-1)
+
+            def mm_err(o):
+                return float(np.abs(decode(cod_mm, dec_mm, o, pid_mm, sc_mm)[:d_mm * d_mm]
+                                    - want_mm).max())
+
+            err_mm = max(mm_err(out_mm[0]), mm_err(out_mm[-1]))
+            end("matmul_d32_n2048", t0, per_step_mm, out_shape=list(out_mm.shape), d=d_mm,
+                n=n_mm, rot_steps=len(mm.rot_steps), max_abs_decode_err=err_mm)
+            if not err_mm < 1e-2:
+                raise AssertionError(f"matmul_d32_n2048 decodes {err_mm} from A @ B")
+            out.append(record("matmul_d32_n2048", f"ckks_matmul_d{d_mm}_n{n_mm}_matmuls_per_s", mm,
+                              (a_mm, b_mm, gk_mm, rk_mm), per_step_mm,
+                              lambda d: within(mm_err(d[1]), 1e-2),
+                              (a_mm[:2].contiguous(), b_mm[:2].contiguous(), gk_mm, rk_mm),
+                              steps=10))
+            del out_mm
+
+            # attention_d32_n2048, attention_d16_n512: bench_all.py's attention
+            # cells (bench_all.py:549-613), softmax(Q K^T / sqrt(d)) V with Q,
+            # K^T and V encrypted, on attention_plan(d)'s chain; the d=16 cell
+            # also runs four heads of d=8 at batch 2 with their own keys
+            for path, d_at, heads_of in (("attention_d32_n2048", 4 if rehearsal else 32, None),
+                                         ("attention_d16_n512", 8 if rehearsal else 16,
+                                          4 if rehearsal else 8)):
+                n_at = 2 * d_at * d_at
+                levels_at, iters_at, _ = T.attention_plan(d_at)
+                t0 = begin(path)
+                set_phase("keygen")
+                ctx_at, kg_at, cod_at, enc_at, dec_at = ckks_context(
+                    n_at, [50] + [40] * levels_at + [50])
+                t1 = time.perf_counter()
+                set_phase("build")
+                run_at, pid_at, sc_at, steps_at = T.build_ckks_attention(ctx_at, d_at, sc, cod_at,
+                                                                         device=device)
+                t2 = time.perf_counter()
+                set_phase("keygen")
+                tool_at = ctx_at.first_context_data().galois_tool
+                elts_at = tool_at.get_elts_from_steps(steps_at)
+                gk_at = kg_at.galois_keys(elts_at).stacked(*elts_at)
+                rk_at = kg_at.relin_keys().stacked(2)
+                keygen_line(path, time.perf_counter() - t2 + t1 - t0, galois_keys=len(elts_at),
+                          rotation_stack_bytes=gk_at.numel() * 8, build_seconds=t2 - t1)
+                set_phase("encode_encrypt")
+                rng_at = np.random.default_rng(23)
+                Q_at, K_at, V_at = (rng_at.uniform(-0.5, 0.5, (d_at, d_at)) for _ in range(3))
+                cts_at = [enc_at.encrypt(cod_at.encode(M.reshape(-1).tolist(), sc)).data
+                          for M in (Q_at, K_at.T, V_at)]
+                qkv = [c.expand((zb,) + tuple(c.shape)).contiguous() for c in cts_at]
+                # the d=16 cell is checked and not timed (the script's time
+                # budget): its kernel calls are held to their plain versions
+                # only
+                set_phase("step" if heads_of is None else "step_checked")
+                out_at, per_step_at = count_step(run_at, *qkv, gk_at, rk_at)
+                extra = {}
+                if heads_of is not None:
+                    # four heads of d=heads_of in the slots, own rotation keys
+                    set_phase("build")
+                    run_mh, pid_mh, sc_mh, steps_mh = T.build_ckks_attention(
+                        ctx_at, heads_of, sc, cod_at, heads=4, device=device)
+                    set_phase("keygen")
+                    elts_mh = tool_at.get_elts_from_steps(steps_mh)
+                    gk_mh = kg_at.galois_keys(elts_mh).stacked(*elts_mh)
+                    set_phase("encode_encrypt")
+                    rng_mh = np.random.default_rng(31)
+                    Q_mh, K_mh, V_mh = (rng_mh.uniform(-0.5, 0.5, (4, heads_of, heads_of))
+                                        for _ in range(3))
+                    qkv_mh = [enc_at.encrypt(cod_at.encode(M.reshape(-1).tolist(), sc)).data
+                              .expand((2,) + tuple(cts_at[0].shape)).contiguous()
+                              for M in (Q_mh, np.swapaxes(K_mh, 1, 2), V_mh)]
+                    set_phase("forms")
+                    out_mh, launches_mh = count_step(run_mh, *qkv_mh, gk_mh, rk_at)
+                set_phase("decrypt_decode")
+
+                def softmax_av(Q, K, V, d):
+                    S = Q @ np.swapaxes(K, -1, -2) / np.sqrt(d)
+                    P = np.exp(S) / np.exp(S).sum(axis=-1, keepdims=True)
+                    return P @ V
+
+                want_at = softmax_av(Q_at, K_at, V_at, d_at).reshape(-1)
+
+                def at_err(o, cod=cod_at, dec=dec_at, pid=pid_at, scale=sc_at, want=want_at):
+                    return float(np.abs(decode(cod, dec, o, pid, scale)[:want.size] - want).max())
+
+                err_at = max(at_err(out_at[0]), at_err(out_at[-1]))
+                if heads_of is not None:
+                    want_mh = softmax_av(Q_mh, K_mh, V_mh, heads_of).reshape(-1)
+
+                    def mh_err(o, pid=pid_mh, scale=sc_mh, want=want_mh):
+                        return at_err(o, pid=pid, scale=scale, want=want)
+
+                    err_mh = mh_err(out_mh[1])
+                    extra = {"forms": {"heads4": {
+                        "d": heads_of, "rot_steps": len(steps_mh),
+                        "launches": sum(by_label(launches_mh).values()),
+                        "max_abs_decode_err": err_mh}},
+                        "input_sha256": sha(torch.stack(cts_at)),
+                        "output_sha256": sha(out_at[0])}
+                end(path, t0, per_step_at, out_shape=list(out_at.shape), d=d_at, n=n_at,
+                    levels=levels_at, goldschmidt_iters=iters_at, rot_steps=len(steps_at),
+                    max_abs_decode_err=err_at, max_err=at_err(out_at[0]), **extra)
+                if not (err_at < 1e-2 and (heads_of is None or err_mh < 1e-3)):
+                    raise AssertionError(f"{path} decodes {err_at} from the numpy attention "
+                                         f"(four heads: {extra.get('forms')})")
+                if heads_of is not None and not rehearsal and (
+                        extra["input_sha256"] != ATTENTION_D16_N512["input_sha256"]
+                        or extra["output_sha256"] != ATTENTION_D16_N512["output_sha256"]
+                        or at_err(out_at[0]) != ATTENTION_D16_N512["max_err"]
+                        or len(steps_at) != ATTENTION_D16_N512["rot_steps"]):
+                    raise AssertionError(f"{path} differs from the JAX package's: {extra}")
+                out.append(record(path, f"ckks_attention_d{d_at}_n{n_at}_attns_per_s", run_at,
+                                  tuple(qkv) + (gk_at, rk_at), per_step_at,
+                                  lambda d, f=at_err: within(f(d[1]), 1e-2),
+                                  tuple(q[:2].contiguous() for q in qkv) + (gk_at, rk_at),
+                                  timed=heads_of is None, steps=10))
+                if heads_of is not None:
+                    out.append(record(f"attention_heads4_d{heads_of}_n{n_at}", None, run_mh,
+                                      None, launches_mh, lambda d, f=mh_err: within(f(d[1]), 1e-3),
+                                      tuple(qkv_mh) + (gk_mh, rk_at), False))
+                    del out_mh
+                del out_at
+            return out
+
         def within(err, limit):
             return err < limit, {"max_abs_decode_err": err}
 
-        def record(name, metric, fn, args, per_step, decode2=None):
-            """A timed zoo path: its step at batch zb, the launches of one
-            step, and decode2(batch-2 output) -> (ok, fields) where the
-            batch-2 form is held to the plain path."""
-            return types.SimpleNamespace(name=name, metric=metric, count=zb, fn=fn, args=args,
-                                         launches=sum(by_label(per_step).values()),
-                                         decode2=decode2)
+        def record(name, metric, fn, args, per_step, decode2=None, args2=None, timed=True,
+                   steps=None):
+            """A zoo path: its step at batch zb (timed unless timed=False;
+            over `steps` steps where given, else about 3 s), the launches of
+            one step, and decode2(batch-2 output) -> (ok, fields) where the
+            batch-2 form (args2; by default the first argument's first two
+            rows) is held to the plain path."""
+            if args2 is None:
+                args2 = (args[0][:2].contiguous(),) + tuple(args[1:])
+            z = types.SimpleNamespace(name=name, metric=metric, count=zb, fn=fn, args=args,
+                                      launches=sum(by_label(per_step).values()),
+                                      decode2=decode2, args2=args2, timed=timed)
+            # the timed call: the parent's lambda (its frame beneath the step
+            # of the size it had there; section 3y says why)
+            z.call = lambda z=z: z.fn(*z.args)
+            z.call.steps = steps
+            return z
 
         return [
             record("dense_layer8x8_n8192", "ckks_dense_layer8x8_n8192_layers_per_s", layer_dl,
@@ -2843,7 +3182,7 @@ def main(argv=None) -> int:
             record("logreg_train_m64_f16_n8192", "ckks_logreg_train_m64_f16_n8192_iters_per_s",
                    train_lt, (a_lx, a_lw, gk_lt, rk_lt), per_step_lt),
             record("logreg_f16_n8192", "ckks_logreg_f16_n8192_inferences_per_s", head_lh,
-                   (a_lh, gk_lh, rk_lh), per_step_lh)]
+                   (a_lh, gk_lh, rk_lh), per_step_lh)] + compare_paths(record, within)
 
     zoo = zoo_paths()
     recorder.remove()
@@ -2964,10 +3303,9 @@ def main(argv=None) -> int:
     for z in zoo:
         if z.decode2 is None:
             continue
-        fargs = (z.args[0][:2].contiguous(),) + z.args[1:]
-        got_k = z.fn(*fargs)
+        got_k = z.fn(*z.args2)
         with plain_versions():
-            got_p = z.fn(*fargs)
+            got_p = z.fn(*z.args2)
         sync()
         if not torch.equal(got_k, got_p):
             raise AssertionError(f"batch-2 {z.name} differs from the plain path")
@@ -3122,7 +3460,7 @@ def main(argv=None) -> int:
         ("matvec_limb4_n4096", "ckks_matvec8x8_limb4_n4096_layers_per_s", rot_batch,
          lambda: limb_matvec(a_mc), rot_batch),
     ]
-    timed += [(z.name, z.metric, z.count, lambda z=z: z.fn(*z.args), z.count) for z in zoo]
+    timed += [(z.name, z.metric, z.count, z.call, z.count) for z in zoo if z.timed]
     keygen_of = {"mul_relin_rescale_sequential": "mul_relin_rescale",
                  "bfv_mul_relin_n8192": "bfv_mul_relin_chain",
                  "bfv_square_relin_n8192": "bfv_mul_relin_chain",
@@ -3293,6 +3631,9 @@ def main(argv=None) -> int:
         "contract:broadcast": "gemini_seal_tpu/models/pipelines.py:318 "
                               "_shared_digit_inner_product; gemini_seal_tpu/ops/keyswitch.py:352 "
                               "keyswitch_inner_product (both key components in one launch)",
+        "contract:pairwise": "gemini_seal_tpu/models/pipelines.py:2333-2342 "
+                             "build_ckks_matmul_square's accumulate_mulmod_128 over the pairs "
+                             "(a_k, b_k) of two batched ciphertexts",
         "elementwise": "gemini_seal_tpu/ops/keyswitch.py:438 fused_moddown mul_mod/add_mod "
                        "epilogues; gemini_seal_tpu/ops/rnsops.py:356 fast_floor, :182 "
                        "divide_and_round_q_last, :463 divide_and_round_multi",

@@ -37,15 +37,18 @@ from .decryptor import Decryptor
 from .evaluator import Evaluator
 from .encoders import BatchEncoder, CKKSEncoder, IntegerEncoder
 from .models.device_evaluator import DeviceEvaluator
-from .models.pipelines import (build_bfv_matvec, build_bfv_mul_relin,
+from .models.pipelines import (attention_plan, build_bfv_matvec, build_bfv_mul_relin,
                                build_bfv_mul_relin_modswitch, build_bfv_rotate_many,
-                               build_ckks_cnn, build_ckks_conv2d, build_ckks_conv2d_mc,
-                               build_ckks_dense_layer, build_ckks_inverse, build_ckks_logreg,
-                               build_ckks_logreg_train_step, build_ckks_matvec,
-                               build_ckks_matvec_bsgs, build_ckks_mlp,
+                               build_ckks_attention, build_ckks_cnn, build_ckks_conv2d,
+                               build_ckks_conv2d_mc, build_ckks_dense_layer, build_ckks_inverse,
+                               build_ckks_logreg, build_ckks_logreg_train_step,
+                               build_ckks_matmul_square, build_ckks_matvec,
+                               build_ckks_matvec_bsgs, build_ckks_max, build_ckks_mlp,
                                build_ckks_mul_relin_rescale, build_ckks_poly_eval,
-                               build_ckks_rotate, build_ckks_rotate_many, build_ckks_train_step,
-                               prepermute_galois_stack, strided_dense_diagonals)
+                               build_ckks_relu, build_ckks_rotate, build_ckks_rotate_many,
+                               build_ckks_rsqrt, build_ckks_sign, build_ckks_sqrt,
+                               build_ckks_train_step, prepermute_galois_stack,
+                               sign_composite_reference, strided_dense_diagonals)
 from .entry import entry
 
 __all__ = [
@@ -71,10 +74,12 @@ __all__ = [
     "BatchEncoder",
     "CKKSEncoder",
     "IntegerEncoder",
+    "attention_plan",
     "build_bfv_matvec",
     "build_bfv_mul_relin",
     "build_bfv_mul_relin_modswitch",
     "build_bfv_rotate_many",
+    "build_ckks_attention",
     "build_ckks_cnn",
     "build_ckks_conv2d",
     "build_ckks_conv2d_mc",
@@ -82,15 +87,22 @@ __all__ = [
     "build_ckks_inverse",
     "build_ckks_logreg",
     "build_ckks_logreg_train_step",
+    "build_ckks_matmul_square",
     "build_ckks_matvec",
     "build_ckks_matvec_bsgs",
+    "build_ckks_max",
     "build_ckks_mlp",
     "build_ckks_mul_relin_rescale",
     "build_ckks_poly_eval",
+    "build_ckks_relu",
     "build_ckks_rotate",
     "build_ckks_rotate_many",
+    "build_ckks_rsqrt",
+    "build_ckks_sign",
+    "build_ckks_sqrt",
     "build_ckks_train_step",
     "prepermute_galois_stack",
+    "sign_composite_reference",
     "strided_dense_diagonals",
     "entry",
 ]

@@ -8,8 +8,11 @@ deep polynomial evaluation and the encrypted matrix-vector products (the
 hoisted diagonal method and baby-step/giant-step); the encrypted model zoo
 built on them (the dense layer, the MLP, the single- and multi-channel
 convolutions and the CNN, the logistic-regression head and its training
-step, the Goldschmidt reciprocal); the BFV (BEHZ) multiply + relinearize,
-its mod-switch chain, the hoisted row rotations and the hoisted BFV matvec.
+step, the Goldschmidt reciprocal), the comparison builders (the composite
+sign, ReLU, max, the Newton inverse square root and square root), the
+encrypted matrix product and encrypted attention; the BFV (BEHZ) multiply
++ relinearize, its mod-switch chain, the hoisted row rotations and the
+hoisted BFV matvec.
 Every step takes ciphertext data shaped [..., size, L, N] with any leading
 batch axes, as the JAX functions do.
 PyTorch runs eagerly; each modular-arithmetic stage is one launch of a
@@ -46,7 +49,10 @@ __all__ = ["build_ckks_mul_relin_rescale", "build_ckks_rotate",
            "build_ckks_matvec_bsgs", "build_ckks_dense_layer", "build_ckks_mlp",
            "build_ckks_conv2d", "strided_dense_diagonals", "build_ckks_conv2d_mc",
            "build_ckks_cnn", "build_bfv_matvec", "build_ckks_logreg",
-           "build_ckks_logreg_train_step", "build_ckks_inverse"]
+           "build_ckks_logreg_train_step", "build_ckks_inverse", "build_ckks_rsqrt",
+           "build_ckks_sqrt", "SIGN_F3", "SIGN_G3", "sign_composite_reference",
+           "build_ckks_sign", "build_ckks_relu", "build_ckks_max", "build_ckks_matmul_square",
+           "attention_plan", "build_ckks_attention"]
 
 
 def tensor_product_plain(a, b, limbs: LimbConstants):
@@ -1310,6 +1316,17 @@ def build_ckks_logreg_train_step(context: SealContext, m: int, F: int, labels, a
     return step, cds[7].parms_id, sc, rot_steps
 
 
+def _level_ids(context: SealContext, parms_id, n_levels: int, what: str):
+    """parms_id and the n_levels parms ids below it on the modulus chain."""
+    ids = [parms_id]
+    for _ in range(n_levels):
+        nxt = context.get_context_data(ids[-1]).next_context_data
+        if nxt is None:
+            raise ValueError(f"modulus chain too short: {what} needs {n_levels} levels")
+        ids.append(nxt.parms_id)
+    return ids
+
+
 def build_ckks_inverse(context: SealContext, scale: float, encoder, iters: int = 4,
                        parms_id=None, device=None):
     """Encrypted reciprocal 1/a by Goldschmidt iteration (the JAX package's
@@ -1326,12 +1343,7 @@ def build_ckks_inverse(context: SealContext, scale: float, encoder, iters: int =
         parms_id = context.first_parms_id
     if iters < 1:
         raise ValueError("need at least one iteration")
-    ids = [parms_id]
-    for _ in range(iters + 1):
-        nxt = context.get_context_data(ids[-1]).next_context_data
-        if nxt is None:
-            raise ValueError(f"modulus chain too short: inverse needs {iters + 1} levels")
-        ids.append(nxt.parms_id)
+    ids = _level_ids(context, parms_id, iters + 1, "inverse")
     cds = [context.get_context_data(i) for i in ids]
     limbs = [c.limb_constants for c in cds]
     q = [float(c.parms.coeff_modulus[-1].value) for c in cds]
@@ -1361,3 +1373,599 @@ def build_ckks_inverse(context: SealContext, scale: float, encoder, iters: int =
         return x                                                  # level iters + 1
 
     return step, ids[iters + 1], sig_x[iters]
+
+
+def build_ckks_rsqrt(context: SealContext, scale: float, encoder, iters: int = 3,
+                     parms_id=None, device=None):
+    """Encrypted inverse square root 1/sqrt(a) by Newton iteration (the JAX
+    package's build_ckks_rsqrt): y_0 = 1, y_{k+1} = y_k (3 - a y_k^2) / 2
+    for slot values a in (0, 2), four levels an iteration (y^2, a y^2,
+    y (3 - a y^2) / 2, the closing rescale); the 3/2 and 1/2 constants
+    encode at Dl^2 so the working scale stays stationary.
+
+    Returns (fn, out_parms_id, out_scale): fn(ct_a, relin_key) with ct_a at
+    `scale`.
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    if iters < 1:
+        raise ValueError("need at least one iteration")
+    n_levels = 4 * iters
+    ids = _level_ids(context, parms_id, n_levels, "rsqrt")
+    cds = [context.get_context_data(i) for i in ids]
+    limbs = [c.limb_constants for c in cds]
+    q = [float(c.parms.coeff_modulus[-1].value) for c in cds]
+    Ls = [len(c.parms.coeff_modulus) for c in cds]
+    Dl = float(scale)
+
+    def _enc(val, sc, lvl):
+        return encoder.encode(float(val), sc, ids[lvl]).data
+
+    stages = []
+    sigma_y = Dl          # y_0 = 1 is re-encoded per build at input scale
+    sigma_a = Dl
+    for k in range(iters):
+        b = 4 * k
+        sq_y = build_ckks_mul_relin_rescale(context, ids[b], square=True, device=device)
+        mul_u = build_ckks_mul_relin_rescale(context, ids[b + 1], device=device)
+        mul_w = build_ckks_mul_relin_rescale(context, ids[b + 2], device=device)
+        sigma_t = sigma_y * sigma_y / q[b]              # level b+1
+        sigma_u = sigma_a * sigma_t / q[b + 1]          # level b+2
+        sigma_v = Dl * Dl
+        pt_half = _enc(0.5, sigma_v / sigma_u, b + 2)
+        pt_3half = _enc(1.5, sigma_v, b + 2)
+        sigma_w = sigma_y * sigma_v / q[b + 2]          # level b+3
+        cd3 = cds[b + 3]
+        sigma_y = sigma_w / q[b + 3]                    # level b+4
+
+        def stage(y, ct_a, relin_key, b=b, sq_y=sq_y, mul_u=mul_u, mul_w=mul_w,
+                  pt_half=pt_half, pt_3half=pt_3half, cd3=cd3):
+            t = sq_y(y, relin_key)                                   # y^2, level b+1
+            u = mul_u(ct_a[..., :Ls[b + 1], :], t, relin_key)        # a y^2, level b+2
+            lim2 = limbs[b + 2]
+            # (1.5 - u0/2, -u1/2): -(u/2) on both components, 3/2 onto c0
+            v = _plain_add_c0(negate_poly(dyadic_product(u, pt_half, lim2), lim2),
+                              pt_3half, lim2)
+            w = mul_w(y[..., :Ls[b + 2], :], v, relin_key)
+            return divide_and_round_q_last_ntt(w, cd3.device_rns_tool, cd3.ntt_tables)
+
+        stages.append(stage)
+
+    one0 = _enc(1.0, Dl, 0)
+
+    def step(ct_a, relin_key):
+        y = torch.zeros_like(ct_a)                 # y_0 = (one0, 0): transparent-free
+        y[..., 0, :, :] = one0
+        for stage in stages:
+            y = stage(y, ct_a, relin_key)
+        return y
+
+    return step, ids[n_levels], sigma_y
+
+
+def build_ckks_sqrt(context: SealContext, scale: float, encoder, iters: int = 3,
+                    parms_id=None, device=None):
+    """Encrypted sqrt(a) = a * rsqrt(a) for slot values in (0, 2) (the JAX
+    package's build_ckks_sqrt): build_ckks_rsqrt plus one closing multiply
+    with the limb-dropped input, 4 * iters + 1 levels.
+
+    Returns (fn, out_parms_id, out_scale); fn(ct_a, relin_key).
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    rs_fn, rs_pid, rs_scale = build_ckks_rsqrt(context, scale, encoder, iters=iters,
+                                               parms_id=parms_id, device=device)
+    rs_cd = context.get_context_data(rs_pid)
+    out_cd = rs_cd.next_context_data
+    if out_cd is None:
+        raise ValueError("modulus chain too short: sqrt needs one more level after rsqrt")
+    L_s = len(rs_cd.parms.coeff_modulus)
+    mul_out = build_ckks_mul_relin_rescale(context, rs_pid, device=device)
+    q_last = float(rs_cd.parms.coeff_modulus[-1].value)
+    out_scale = rs_scale * float(scale) / q_last
+
+    def step(ct_a, relin_key):
+        y = rs_fn(ct_a, relin_key)
+        return mul_out(ct_a[..., :L_s, :], y, relin_key)
+
+    return step, out_cd.parms_id, out_scale
+
+
+#: Odd degree-7 minimax component polynomials for composite sign
+#: evaluation (Cheon-Kim-Kim, Asiacrypt'20): p(x) = x * q(x^2) with
+#: q(y) = c0 + c1 y + c2 y^2 + c3 y^3.  f3 contracts toward +-1 on
+#: [-1, 1] (f3(1) = 1); g3 widens the step first so fewer total
+#: compositions reach a target resolution.
+SIGN_F3 = (35 / 16, -35 / 16, 21 / 16, -5 / 16)
+SIGN_G3 = (4589 / 1024, -16577 / 1024, 25614 / 1024, -12860 / 1024)
+
+
+def sign_composite_reference(x, n_g: int = 1, n_f: int = 2):
+    """Plain evaluation of the g3^(n_g) then f3^(n_f) composition — the
+    exact curve the encrypted pipeline approximates (for tests/tuning)."""
+    def _p(c, v):
+        y = v * v
+        return v * (c[0] + c[1] * y + c[2] * y * y + c[3] * y * y * y)
+
+    v = np.asarray(x, dtype=np.float64)
+    for _ in range(n_g):
+        v = _p(SIGN_G3, v)
+    for _ in range(n_f):
+        v = _p(SIGN_F3, v)
+    return v
+
+
+def build_ckks_sign(context: SealContext, scale: float, encoder, n_g: int = 1, n_f: int = 2,
+                    parms_id=None, device=None):
+    """Encrypted sign(a) for slot values in [-1, 1] by the composite minimax
+    schedule f3^(n_f) o g3^(n_g) (the JAX package's build_ckks_sign).
+
+    Each odd degree-7 stage p(x) = hi(x) x^4 + lo(x), hi = c2 x + c3 x^3,
+    lo = c0 x + c1 x^3, takes four levels (x^2, x^3 and x^4, hi x^4, the
+    closing rescale); its coefficients encode at scales aligned per level
+    as in the bootstrap's EvalMod, 4 * (n_g + n_f) levels in all.
+
+    Returns (fn, out_parms_id, out_scale); fn(ct_a, relin_key).
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    stages = [SIGN_G3] * n_g + [SIGN_F3] * n_f
+    n_levels = 4 * len(stages)
+    ids = _level_ids(context, parms_id, n_levels, "sign")
+    cds = [context.get_context_data(i) for i in ids]
+    limbs = [c.limb_constants for c in cds]
+    q = [float(c.parms.coeff_modulus[-1].value) for c in cds]
+    Ls = [len(c.parms.coeff_modulus) for c in cds]
+    Dl = float(scale)
+
+    def _enc(val, sc, lvl):
+        return encoder.encode(float(val), sc, ids[lvl]).data
+
+    def make_stage(b, coeffs, sigma_x):
+        sq_x2 = build_ckks_mul_relin_rescale(context, ids[b], square=True, device=device)
+        mul_x3 = build_ckks_mul_relin_rescale(context, ids[b + 1], device=device)
+        sq_x4 = build_ckks_mul_relin_rescale(context, ids[b + 1], square=True, device=device)
+        mul_w = build_ckks_mul_relin_rescale(context, ids[b + 2], device=device)
+        c0, c1, c2, c3 = coeffs
+        sigma_x2 = sigma_x * sigma_x / q[b]                 # level b+1
+        sigma_x3 = sigma_x2 * sigma_x / q[b + 1]            # level b+2
+        sigma_x4 = sigma_x2 * sigma_x2 / q[b + 1]           # level b+2
+        sigma_hi = Dl * Dl
+        pt_c2 = _enc(c2, sigma_hi / sigma_x, b + 2)
+        pt_c3 = _enc(c3, sigma_hi / sigma_x3, b + 2)
+        sigma_w = sigma_hi * sigma_x4 / q[b + 2]            # level b+3
+        pt_c0 = _enc(c0, sigma_w / sigma_x, b + 3)
+        pt_c1 = _enc(c1, sigma_w / sigma_x3, b + 3)
+        sigma_out = sigma_w / q[b + 3]                      # level b+4
+        lim2, lim3 = limbs[b + 2], limbs[b + 3]
+        cd3 = cds[b + 3]
+
+        def stage(x, relin_key):
+            x2 = sq_x2(x, relin_key)                        # level b+1
+            x3 = mul_x3(x2, x[..., :Ls[b + 1], :], relin_key)  # level b+2
+            x4 = sq_x4(x2, relin_key)                       # level b+2
+            hi = add_poly(dyadic_product(x[..., :Ls[b + 2], :].contiguous(), pt_c2, lim2),
+                          dyadic_product(x3, pt_c3, lim2), lim2)
+            w = mul_w(x4, hi, relin_key)                    # level b+3
+            lo = add_poly(dyadic_product(x[..., :Ls[b + 3], :].contiguous(), pt_c0, lim3),
+                          dyadic_product(x3[..., :Ls[b + 3], :].contiguous(), pt_c1, lim3),
+                          lim3)
+            return divide_and_round_q_last_ntt(add_poly(w, lo, lim3), cd3.device_rns_tool,
+                                               cd3.ntt_tables)          # level b+4
+
+        return stage, sigma_out
+
+    fns = []
+    sigma = Dl
+    for i, coeffs in enumerate(stages):
+        fn_i, sigma = make_stage(4 * i, coeffs, sigma)
+        fns.append(fn_i)
+
+    def step(ct_a, relin_key):
+        x = ct_a
+        for fn_i in fns:
+            x = fn_i(x, relin_key)
+        return x
+
+    return step, ids[n_levels], sigma
+
+
+def _sign_gate(context: SealContext, scale: float, encoder, n_g: int, n_f: int, parms_id,
+               what: str, device):
+    """The sign pipeline and the bookkeeping of the one multiply that
+    follows it in relu and max: the ones-plaintext at the sign output's
+    scale, the multiplier at the sign level and the halved output scale
+    (the /2 of (1 +- sign) / 2 folds into out_scale)."""
+    sign_fn, sign_pid, sign_scale = build_ckks_sign(context, scale, encoder, n_g=n_g,
+                                                    n_f=n_f, parms_id=parms_id, device=device)
+    sign_cd = context.get_context_data(sign_pid)
+    out_cd = sign_cd.next_context_data
+    if out_cd is None:
+        raise ValueError(f"modulus chain too short: {what} needs one more level after sign")
+    one_s = encoder.encode(1.0, sign_scale, sign_pid).data
+    mul_out = build_ckks_mul_relin_rescale(context, sign_pid, device=device)
+    q_last = float(sign_cd.parms.coeff_modulus[-1].value)
+    out_scale = 2.0 * sign_scale * float(scale) / q_last
+    return sign_fn, sign_cd, out_cd, one_s, mul_out, out_scale
+
+
+def build_ckks_relu(context: SealContext, scale: float, encoder, n_g: int = 1, n_f: int = 2,
+                    parms_id=None, device=None):
+    """Encrypted ReLU(a) = a (1 + sign(a)) / 2 for slot values in [-1, 1]
+    (the JAX package's build_ckks_relu): the composite sign and one closing
+    multiply with the limb-dropped input; the /2 folds into out_scale.
+    4 * (n_g + n_f) + 1 levels.
+
+    Returns (fn, out_parms_id, out_scale); fn(ct_a, relin_key).
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    sign_fn, sign_cd, out_cd, one_s, mul_out, out_scale = _sign_gate(
+        context, scale, encoder, n_g, n_f, parms_id, "relu", device)
+    lim_s = sign_cd.limb_constants
+    L_s = len(sign_cd.parms.coeff_modulus)
+
+    def step(ct_a, relin_key):
+        gate = _plain_add_c0(sign_fn(ct_a, relin_key), one_s, lim_s)   # 1 + sign(a)
+        return mul_out(ct_a[..., :L_s, :], gate, relin_key)
+
+    return step, out_cd.parms_id, out_scale
+
+
+def build_ckks_max(context: SealContext, scale: float, encoder, n_g: int = 1, n_f: int = 2,
+                   parms_id=None, device=None):
+    """Encrypted slotwise max(a, b) = ((a + b) + (a - b) sign(a - b)) / 2
+    (the JAX package's build_ckks_max) for |a - b| <= 1: the (a + b) branch
+    is multiplied by the ones-plaintext at the sign output's scale and
+    rescaled by the same prime as the (a - b) sign(a - b) product, so both
+    land at one scale; the /2 folds into out_scale.
+    4 * (n_g + n_f) + 1 levels.
+
+    Returns (fn, out_parms_id, out_scale); fn(ct_a, ct_b, relin_key).
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    in_limbs = context.get_context_data(parms_id).limb_constants
+    sign_fn, sign_cd, out_cd, one_s, mul_out, out_scale = _sign_gate(
+        context, scale, encoder, n_g, n_f, parms_id, "max", device)
+    lim_s = sign_cd.limb_constants
+    L_s = len(sign_cd.parms.coeff_modulus)
+
+    def step(ct_a, ct_b, relin_key):
+        diff = sub_poly(ct_a.contiguous(), ct_b.contiguous(), in_limbs)
+        v = mul_out(diff[..., :L_s, :], sign_fn(diff, relin_key), relin_key)
+        tot = add_poly(ct_a[..., :L_s, :].contiguous(), ct_b[..., :L_s, :].contiguous(), lim_s)
+        return add_poly(_plain_mul_rescale(tot, one_s, sign_cd), v, out_cd.limb_constants)
+
+    return step, out_cd.parms_id, out_scale
+
+
+def _contract_pairs(a, b, limbs: LimbConstants):
+    """out[g] = sum_k a[g, k] * b[g, k] mod p: products of two ciphertexts'
+    components summed over k, one ``contract`` launch with the rows g as its
+    groups (its pairwise mode), exact in 128 bits.
+
+    a, b: int64[G, K, L, N]; returns int64[G, L, N]."""
+    return contract_mulmod_128(a.contiguous().unsqueeze(0), b.contiguous(), limbs.p.reshape(-1),
+                               limbs.ratio0.reshape(-1), limbs.ratio1.reshape(-1),
+                               pairwise=True).squeeze(0)
+
+
+def build_ckks_matmul_square(context: SealContext, d: int, scale: float, encoder,
+                             parms_id=None, heads: int = 1, device=None):
+    """Encrypted d x d matrix product of two row-major packed matrices
+    (Jiang-Kim-Lauter-Song; the JAX package's build_ckks_matmul_square):
+    C = sum_k phi^k(sigma(A)) (*) psi^k(tau(B)), three levels.
+
+    sigma and tau are hoisted matvecs at the scale q_0 (fused mod-down);
+    the column shifts phi^k and the row shifts psi^k are two hoisted
+    rotation sets at level 1.  Each term's masked A side m_lo (*) rot +
+    m_hi (*) rot' is one ``contract`` launch over all terms (two weights a
+    term, the phi masks encoded at q_1); the degree-2 product
+    sum_k a_k (*) b_k is three launches of the contraction's pairwise mode
+    (components 0, 1 and 2), relinearized once, then rescaled twice.
+    heads > 1 packs H independent products in d^2-slot blocks: tau and
+    psi^k split into in-block and wrapped parts and the block masks fold
+    into the A side (2d - 1 terms).  Every value is the JAX function's bit
+    for bit.
+
+    Returns (fn, out_parms_id, out_scale): fn(ctA, ctB, rot_keys_stack,
+    relin_key) with rot_keys_stack ordered by fn.rot_steps.
+    """
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    s = encoder.slot_count
+    if d < 2 or heads < 1 or heads * d * d != s:
+        raise ValueError(f"need d >= 2 with heads*d*d == slots ({heads}*{d}^2 != {s})")
+    P = d * d                                   # block (head) size
+    ids = _level_ids(context, parms_id, 3, "matmul")
+    cds = [context.get_context_data(i) for i in ids]
+    q = [float(c.parms.coeff_modulus[-1].value) for c in cds]
+    lim = cds[1].limb_constants
+    dev = context.device
+
+    Dl = float(scale)
+    u_idx = np.arange(s) % P                    # within-block offset
+    i_idx = u_idx // d
+    j_idx = u_idx % d
+
+    # sigma: offset k masks j < d-k of row k, offset k-d the wrapped tail
+    sigma_diags = {}
+    for k in range(d):
+        m_lo_s = ((i_idx == k) & (j_idx < d - k)).astype(float)
+        if m_lo_s.any():
+            sigma_diags[k] = m_lo_s.tolist()
+        if k:
+            m_hi_s = ((i_idx == k) & (j_idx >= d - k)).astype(float)
+            sigma_diags[(k - d) % s] = m_hi_s.tolist()
+    # tau: offset d*j selects column j; with several heads the rows i >= d-j
+    # ride the wrapped offset d*j - P
+    tau_diags = {}
+    for j in range(d):
+        if heads == 1:
+            tau_diags[d * j] = (j_idx == j).astype(float).tolist()
+            continue
+        lo = ((j_idx == j) & (i_idx < d - j)).astype(float)
+        if lo.any():
+            tau_diags[d * j] = lo.tolist()
+        if j:
+            hi = ((j_idx == j) & (i_idx >= d - j)).astype(float)
+            tau_diags[(d * j - P) % s] = hi.tolist()
+
+    sigma_fn = build_ckks_matvec(context, sigma_diags, q[0], encoder, parms_id=ids[0],
+                                 device=device)
+    tau_fn = build_ckks_matvec(context, tau_diags, q[0], encoder, parms_id=ids[0],
+                               device=device)
+
+    stepsA = sorted({k for k in range(1, d)} | {s - d + k for k in range(1, d)})
+    stepsB = sorted({d * k for k in range(1, d)}
+                    | ({(d * k - P) % s for k in range(1, d)} if heads > 1 else set()))
+    rotA_fn = build_ckks_rotate_many(context, stepsA, parms_id=ids[1], device=device)
+    rotB_fn = build_ckks_rotate_many(context, stepsB, parms_id=ids[1], device=device)
+    # source rows: 0 the unrotated sigma(A) / tau(B), 1 + r the r-th rotation
+    posA = {st: 1 + r for r, st in enumerate(stepsA)}
+    posB = {st: 1 + r for r, st in enumerate(stepsB)}
+
+    # the phi^k masks (heads > 1: intersected with psi^k's block masks, _p
+    # beside the in-place row shift d*k, _w beside its wrapped twin d*k - P),
+    # and one zero mask for the unshifted term's absent wrap
+    preds = {("lo", k): j_idx < d - k for k in range(d)}
+    preds.update({("hi", k): j_idx >= d - k for k in range(1, d)})
+    if heads > 1:
+        preds = {(side + "_p", k): pr & (i_idx < d - k) for (side, k), pr in preds.items()}
+        preds.update({("lo_w", k): (j_idx < d - k) & (i_idx >= d - k) for k in range(1, d)})
+        preds.update({("hi_w", k): (j_idx >= d - k) & (i_idx >= d - k) for k in range(1, d)})
+    preds["zero"] = np.zeros(s, dtype=bool)
+    mask_keys = list(preds)
+    masks = encoder.encode_stack([preds[m].astype(float).tolist() for m in mask_keys], q[1],
+                                 ids[1])
+    mpos = {m: i for i, m in enumerate(mask_keys)}
+
+    # the contraction's terms: (A base row, its mask, A wrap row, its mask, B row)
+    sfx = "_p" if heads > 1 else ""
+    terms = [(0, ("lo" + sfx, 0), 0, "zero", 0)]
+    for k in range(1, d):
+        base, wrap = posA[k], posA[s - d + k]
+        terms.append((base, ("lo" + sfx, k), wrap, ("hi" + sfx, k), posB[d * k]))
+        if heads > 1:
+            terms.append((base, ("lo_w", k), wrap, ("hi_w", k), posB[(d * k - P) % s]))
+    T = len(terms)
+    a_rows = [r for t in terms for r in (t[0], t[2])]
+    b_rows = [t[4] for t in terms]
+    w_masks = masks[torch.tensor([mpos[m] for t in terms for m in (t[1], t[3])],
+                                 device=dev)].reshape(T, 2, *masks.shape[-2:])
+
+    # master key order: union of every consumer's sorted step set
+    rot_steps = sorted(set(sorted(sigma_diags) + list(tau_diags)) | set(stepsA) | set(stepsB))
+    rot_steps = [st for st in rot_steps if st != 0]
+    midx = {st: i for i, st in enumerate(rot_steps)}
+
+    def key_index(steps):
+        return torch.tensor([midx[st] for st in steps], dtype=torch.int64, device=dev)
+
+    idx_sigma = key_index([st for st in sorted(sigma_diags) if st != 0])
+    idx_tau = key_index([st for st in sorted(tau_diags) if st != 0])
+    idx_A, idx_B = key_index(stepsA), key_index(stepsB)
+    relin_plan = KeySwitchPlan(context, ids[1])
+
+    def _rescale(ct, lvl):
+        return divide_and_round_q_last_ntt(ct, cds[lvl].device_rns_tool, cds[lvl].ntt_tables)
+
+    def rows_by_component(base, rot, picks):
+        """The picked source rows [2, B, len(picks), L, N], components first:
+        row 0 is base [B, 2, L, N], row 1 + r the rotation rot[r]."""
+        src = [base] + list(rot.unbind(0))
+        return torch.stack([src[r].transpose(0, 1) for r in picks], dim=2)
+
+    def step(ctA, ctB, rot_keys_stack, relin_key):
+        lead = ctA.shape[:-3]
+        ctA = ctA.contiguous().reshape((-1,) + tuple(ctA.shape[-3:]))
+        ctB = ctB.contiguous().reshape((-1,) + tuple(ctB.shape[-3:]))
+        sA = _rescale(sigma_fn(ctA, rot_keys_stack.index_select(0, idx_sigma)), 0)
+        tB = _rescale(tau_fn(ctB, rot_keys_stack.index_select(0, idx_tau)), 0)
+        rA = rotA_fn(sA, rot_keys_stack.index_select(0, idx_A))    # [RA, B, 2, L1, N]
+        rB = rotB_fn(tB, rot_keys_stack.index_select(0, idx_B))
+        # every term's masked A side in one launch: a_t = m (*) base + m' (*) wrap
+        a_in = rows_by_component(sA, rA, a_rows)                 # [2, B, 2T, L1, N]
+        a = _contract(a_in.reshape(a_in.shape[:2] + (T, 2) + a_in.shape[-2:]), w_masks, lim)
+        b = rows_by_component(tB, rB, b_rows)                    # [2, B, T, L1, N]
+        # C (degree 2) = sum_k a_k (*) b_k, one pairwise contraction a component
+        p0 = _contract_pairs(a[0], b[0], lim)
+        p1 = _contract_pairs(torch.cat([a[0], a[1]], dim=1), torch.cat([b[1], b[0]], dim=1), lim)
+        p2 = _contract_pairs(a[1], b[1], lim)
+        # one relinearization of the degree-2 tail, then the two rescales
+        # (q1: the mask scale, q2: one product prime)
+        ct_k = compute_modup_digits(p2, relin_plan, True)
+        d0, d1 = keyswitch_inner_product(ct_k, relin_key, relin_plan, True)
+        out = torch.stack([add_poly(p0, d0, lim), add_poly(p1, d1, lim)], dim=-3)
+        out = _rescale(_rescale(out, 1), 2)
+        return out.reshape(lead + tuple(out.shape[-3:]))
+
+    step.rot_steps = rot_steps
+    out_scale = (Dl * Dl * q[1]) / (q[1] * q[2])
+    return step, ids[3], out_scale
+
+
+def attention_plan(d: int, msg_bound: float = 0.5, exp_degree: int = 4,
+                   iters: int = None, recip_target: float = 1e-5):
+    """Level/accuracy plan for `build_ckks_attention`.
+
+    With Q/K/V slot values in [-msg_bound, msg_bound], the logits are
+    bounded by B = sqrt(d) * msg_bound^2, so the softmax denominator
+    rowsum lies in [d*e^-B, d*e^B] and the Goldschmidt seed error after
+    the range reduction R = (rmin + rmax)/2 is |e_0| <= tanh(B).  When
+    `iters` is None the smallest m with tanh(B)^(2^(m+1)) <= recip_target
+    is chosen (a * x_m = 1 - e_0^(2^(m+1)), build_ckks_inverse).
+
+    Returns (n_levels, iters, logit_bound):
+    n_levels = 3 (QK^T) + exp_degree-1 (exp chain) + 1 (exp realign)
+    + 1 (rowsum) + iters+1 (reciprocal) + 1 (P = E*recip)
+    + 1 (P realign) + 3 (P @ V) = exp_degree + iters + 10.
+    """
+    import math as _math
+
+    B = _math.sqrt(d) * msg_bound * msg_bound
+    if iters is None:
+        e0 = _math.tanh(B)
+        m = 1
+        while e0 ** (2 ** (m + 1)) > recip_target:
+            m += 1
+        iters = m
+    return exp_degree + iters + 10, iters, B
+
+
+def build_ckks_attention(context: SealContext, d: int, scale: float, encoder,
+                         msg_bound: float = 0.5, iters: int = None, exp_mode: str = "cheby",
+                         exp_degree: int = 4, recip_target: float = 1e-5, parms_id=None,
+                         heads: int = 1, device=None):
+    """Encrypted attention softmax(Q @ K^T / sqrt(d)) @ V with Q, K^T and V
+    all encrypted, d x d row-major packed (the JAX package's
+    build_ckks_attention; heads > 1 packs H independent heads in d^2-slot
+    blocks, heads*d*d == slots).  Stages, each the JAX stage's values bit
+    for bit: S = Q @ K^T (build_ckks_matmul_square, 3 levels); E = exp(S /
+    sqrt(d)) by build_ckks_poly_eval (exp_mode "cheby": the degree
+    exp_degree Chebyshev interpolant over the raw-logit window [-d mb^2,
+    d mb^2]; "taylor": the degree-4 Maclaurin series), realigned to the
+    scale Dl; the block row sum divided by R (a masked matvec, 1 level);
+    the Goldschmidt reciprocal (build_ckks_inverse, iters + 1 levels);
+    P = E * recip and its realignment (2 levels); out = P @ V (3 levels),
+    with 1/R folded into out_scale.  exp_degree + iters + 10 levels
+    (attention_plan).
+
+    Returns (run, out_parms_id, out_scale, rot_steps): run(ctQ, ctKT, ctV,
+    rot_keys_stack, relin_key) with rot_keys_stack stacked for rot_steps
+    (the union over both matmuls and the row-sum map).
+    """
+    import math as _math
+
+    context.check_device(device)
+    if parms_id is None:
+        parms_id = context.first_parms_id
+    s = encoder.slot_count
+    if heads * d * d != s:
+        raise ValueError(f"need heads*d*d == slots ({heads}*{d}^2 != {s})")
+    Dl = float(scale)
+    _, iters, _B = attention_plan(d, msg_bound, exp_degree, iters, recip_target)
+    dev = context.device
+
+    # stage 1: S = Q @ K^T (3 levels)
+    mm1, pid_s, sc_s = build_ckks_matmul_square(context, d, Dl, encoder, parms_id=parms_id,
+                                                heads=heads, device=device)
+
+    # stage 2: E = exp(S / sqrt(d)) (exp_degree - 1 levels)
+    a = 1.0 / _math.sqrt(d)
+    if exp_mode == "cheby":
+        Bs = d * msg_bound * msg_bound       # raw-logit (QK^T entry) bound
+        ch = np.polynomial.chebyshev.Chebyshev.interpolate(
+            lambda t, _a=a: np.exp(_a * t), exp_degree, domain=[-Bs, Bs])
+        exp_coeffs = ch.convert(kind=np.polynomial.polynomial.Polynomial
+                                ).coef.tolist()
+    elif exp_mode == "taylor":
+        if exp_degree != 4:
+            raise ValueError("taylor mode is the pinned legacy degree-4")
+        exp_coeffs = [a ** k / _math.factorial(k) for k in range(5)]
+    else:
+        raise ValueError(f"unknown exp_mode {exp_mode!r}")
+    exp_fn, pid_e70, sc_e70 = build_ckks_poly_eval(context, exp_coeffs, sc_s, encoder,
+                                                   parms_id=pid_s, device=device)
+
+    # poly_eval lands at ~scale^2: one value-preserving realignment brings E
+    # back to exactly Dl (1 level)
+    cd_e70 = context.get_context_data(pid_e70)
+    q_e70 = float(cd_e70.parms.coeff_modulus[-1].value)
+    pt_align_e = encoder.encode(1.0, Dl * q_e70 / sc_e70, pid_e70).data
+    pid_e = cd_e70.next_context_data.parms_id
+    sc_e = Dl
+    cd_e = context.get_context_data(pid_e)
+
+    # stage 3: rowsum / R, a block-local masked matvec (1 level)
+    bx = _math.sqrt(d) * msg_bound * msg_bound
+    rmin, rmax = d * _math.exp(-bx), d * _math.exp(bx)
+    R = 0.5 * (rmin + rmax)
+    j_idx = np.arange(s) % d
+    rs_diags = {}
+    for o in range(d):
+        lo = ((j_idx + o) < d).astype(float) / R     # stay in row
+        hi = ((j_idx + o) >= d).astype(float) / R    # wrapped part
+        if lo.any():
+            rs_diags[o] = lo.tolist()
+        if o and hi.any():
+            rs_diags[o - d] = hi.tolist()
+    q_e = float(cd_e.parms.coeff_modulus[-1].value)
+    rs_fn = build_ckks_matvec(context, rs_diags, q_e, encoder, parms_id=pid_e, device=device)
+    pid_r = cd_e.next_context_data.parms_id
+    sc_r = sc_e                                       # scale-preserving
+
+    # stage 4: recip = R / rowsum (iters + 1 levels)
+    inv_fn, pid_i, sc_i = build_ckks_inverse(context, sc_r, encoder, iters=iters,
+                                             parms_id=pid_r, device=device)
+    cd_i = context.get_context_data(pid_i)
+    L_i = len(cd_i.parms.coeff_modulus)
+
+    # stage 5: P = E * recip (1 level), values R * softmax
+    mul_p = build_ckks_mul_relin_rescale(context, pid_i, device=device)
+    q_i = float(cd_i.parms.coeff_modulus[-1].value)
+    pid_p = cd_i.next_context_data.parms_id
+    sc_p = sc_e * sc_i / q_i
+
+    # stage 6: realign P to exactly Dl (1 level)
+    cd_p = context.get_context_data(pid_p)
+    q_p = float(cd_p.parms.coeff_modulus[-1].value)
+    pt_align = encoder.encode(1.0, Dl * q_p / sc_p, pid_p).data
+    pid_p2 = cd_p.next_context_data.parms_id
+
+    # stage 7: out = P @ V (3 levels); 1/R folds into out_scale
+    mm2, pid_o, sc_o = build_ckks_matmul_square(context, d, Dl, encoder, parms_id=pid_p2,
+                                                heads=heads, device=device)
+    L_p2 = len(context.get_context_data(pid_p2).parms.coeff_modulus)
+    out_scale = sc_o * R                  # values carry R*softmax @ V
+
+    # one global rotation-key stack
+    step_set = set(mm1.rot_steps) | set(mm2.rot_steps)
+    step_set |= {st for st in rs_diags if st != 0}
+    rot_steps = sorted(step_set)
+    sidx = {st: i for i, st in enumerate(rot_steps)}
+
+    def key_index(steps):
+        return torch.tensor([sidx[st] for st in steps], dtype=torch.int64, device=dev)
+
+    idx_mm1, idx_mm2 = key_index(mm1.rot_steps), key_index(mm2.rot_steps)
+    idx_rs = key_index([st for st in sorted(rs_diags) if st != 0])
+
+    def run(ctQ, ctKT, ctV, rot_keys_stack, relin_key):
+        S = mm1(ctQ, ctKT, rot_keys_stack.index_select(0, idx_mm1), relin_key)
+        E = _plain_mul_rescale(exp_fn(S, relin_key, None), pt_align_e, cd_e70)
+        rsum = divide_and_round_q_last_ntt(
+            rs_fn(E, rot_keys_stack.index_select(0, idx_rs)), cd_e.device_rns_tool,
+            cd_e.ntt_tables)
+        recip = inv_fn(rsum, relin_key)
+        Pm = _plain_mul_rescale(mul_p(E[..., :L_i, :], recip, relin_key), pt_align, cd_p)
+        return mm2(Pm, ctV[..., :L_p2, :], rot_keys_stack.index_select(0, idx_mm2), relin_key)
+
+    return run, pid_o, out_scale, rot_steps

@@ -13,7 +13,8 @@ after its kernel launched, and nowhere else.  A call in one of a kernel's
 modes (``MODES``) also adds one under ``"kernel:mode"``, so that a check can
 tell that the mode ran: the large-ring NTT, the signed, paired and signed
 paired Galois permutations, the contraction with its input broadcast over
-the groups, the elementwise Barrett-64 reduction without a second operand,
+the groups and with both operands ciphertext data paired group by group,
+the elementwise Barrett-64 reduction without a second operand,
 the negacyclic shift with and without its monomial multiply, the NTT's
 chunk-local stages of the coefficient-sharded NTT (``sub_row``) and the two
 modes of its cross stages (``ntt_sp``: ``exchange``, ``rows``).  A call
@@ -85,7 +86,7 @@ KERNELS = {
 MODES = {
     "ntt": ("large_ring", "sub_row"),
     "galois": ("signed", "paired", "signed_paired"),
-    "contract": ("broadcast",),
+    "contract": ("broadcast", "pairwise"),
     "elementwise": ("reduce64",),
     "negacyclic": ("shift", "mono_mul"),
     "ntt_sp": ("exchange", "rows"),

@@ -317,7 +317,7 @@ def contract_geometry(R, Ga, G, K, J, Ja, N, Nw, prescale: bool, vec: int,
             "smem": fixed(shoup) + stage(tile)}
 
 
-def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None):
+def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None, pairwise: bool = False):
     """out[..., g, j, n] = sum_k A'[..., g|0, k, j|0, n] * W[g, k, j, n|0] mod p_j.
 
     a: [..., Ga, K, Ja, N] with Ga in {1, G} (one input broadcast over the
@@ -327,9 +327,15 @@ def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None):
     p/ratio0/ratio1: [J] (any shape of J elements).  ``prescale`` =
     (s, q, q_r0, q_r1), each [G, K]: A' = A * s mod q first (the mod-up's
     punctured-inverse multiply and the mod-down's inv_hat multiply).
+    pairwise=True: both operands are ciphertext data paired group by group
+    (a [1, G, K, J, N], w [G, K, J, N]: the batch rows as the groups, the
+    encrypted matmul's products), counted under ``contract:pairwise``.
     Exact in 128 bits, then one Barrett: canonical output, equal to the JAX
     digit-plane sum whenever that sum is below 2^128.
     """
+    if pairwise and (a.dim() != 5 or a.shape[0] != 1 or tuple(a.shape[1:]) != tuple(w.shape)):
+        raise ValueError(f"contract: pairwise operands {tuple(a.shape)} and {tuple(w.shape)} "
+                         "are not [1, G, K, J, N] and [G, K, J, N]")
     if not is_cuda(a, w, p):
         return contract_plain(a, w, p, ratio0, ratio1, prescale)
     G, K, J, Ja, N, Nw = _contract_shapes(a, w)
@@ -353,7 +359,7 @@ def contract_mulmod_128(a, w, p, ratio0, ratio1, prescale=None):
               R, G, Ga, K, J, Ja, N, int(Nw > 1), vec, geo["log_tp"], geo["threads"],
               geo["z_count"], geo["ng"], geo["grid_y"], geo["staged"], geo["shoup"],
               geo["smem"],
-              mode="broadcast" if broadcast else None)
+              mode="broadcast" if broadcast else "pairwise" if pairwise else None)
     return out
 
 

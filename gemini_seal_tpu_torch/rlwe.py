@@ -78,6 +78,34 @@ def encrypt_zero_asymmetric(
     )
 
 
+# host draws (a, e) of the pinned-seed zero-encryptions, by (seed, moduli, N)
+_PINNED_DRAWS = {}
+_PINNED_DRAWS_MAX = 8
+
+
+def _symmetric_draws(parms, coeff_modulus, moduli, n):
+    """The uniform a and the error e of one zero-encryption, as host arrays.
+
+    With a pinned parameter seed both streams start afresh at every call
+    (as in the JAX package), so every call draws the same a and e: they are
+    drawn once per (seed, moduli, N) and reused, which keeps a key set of
+    thousands of bundles from repeating the same host sampling.
+    """
+    if parms.random_seed is None:
+        return (sample_poly_uniform(BlakePRNGFactory().create(), coeff_modulus, n),
+                sample_poly_normal(parms_rng(parms), moduli, n))
+    key = (tuple(parms.random_seed), tuple(moduli), n)
+    draws = _PINNED_DRAWS.get(key)
+    if draws is None:
+        c1_rng = Blake2xbPRNG(tuple((s ^ 0xA5A5A5A5A5A5A5A5) for s in parms.random_seed))
+        draws = (sample_poly_uniform(c1_rng, coeff_modulus, n),
+                 sample_poly_normal(parms_rng(parms), moduli, n))
+        if len(_PINNED_DRAWS) >= _PINNED_DRAWS_MAX:
+            _PINNED_DRAWS.pop(next(iter(_PINNED_DRAWS)))
+        _PINNED_DRAWS[key] = draws
+    return draws
+
+
 def encrypt_zero_symmetric(
     secret_key: SecretKey, context, parms_id, is_ntt_form: bool
 ) -> Ciphertext:
@@ -97,15 +125,10 @@ def encrypt_zero_symmetric(
     limbs = cd.limb_constants
     dev = context.device
 
-    rng_error = parms_rng(parms)
-    if parms.random_seed is not None:
-        c1_rng = Blake2xbPRNG(tuple((s ^ 0xA5A5A5A5A5A5A5A5) for s in parms.random_seed))
-    else:
-        c1_rng = BlakePRNGFactory().create()
-
     # a (= c1) uniform, sampled directly in the ciphertext's domain
-    c1 = to_tensor(sample_poly_uniform(c1_rng, coeff_modulus, n), dev)
-    e = to_tensor(sample_poly_normal(rng_error, moduli, n), dev)
+    a_host, e_host = _symmetric_draws(parms, coeff_modulus, moduli, n)
+    c1 = to_tensor(a_host, dev)
+    e = to_tensor(e_host, dev)
 
     sk = secret_key.data[:L, :].contiguous()
     c0 = dyadic_product(sk, c1, limbs)

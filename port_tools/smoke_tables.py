@@ -13,8 +13,8 @@ Each RUN.log is the standard output of one ``python3 chip_smoke.py`` run
 - per kernel label of ``--kernels`` (by default every ``ntt`` and
   ``galois`` label) and per path: the summed ms of the step's calls, with
   the bound and the library call's ms of the first run (``kernels`` line);
-- per path: K3 ``contract`` in all its modes (``contract`` and
-  ``contract:broadcast`` summed): the ms a step of the step's calls, the
+- per path: K3 ``contract`` in all its modes (``contract``,
+  ``contract:broadcast`` and ``contract:pairwise`` summed): the ms a step of the step's calls, the
   launches a step, and the bound and plain ms of the first run
   (``kernels`` line);
 - per path: the device ms a step of K1 (kernels named ``ntt_kernel``, and
@@ -119,7 +119,8 @@ def main(argv=None) -> int:
               f"{fmt(rows[0].get('library_ms'))} |")
 
     # K3 in all its modes
-    k3 = [[k.get(label) for label in ("contract", "contract:broadcast")] for k in klines]
+    k3 = [[k.get(label) for label in ("contract", "contract:broadcast", "contract:pairwise")]
+          for k in klines]
     if any(r for rows in k3 for r in rows):
         def launches(row, path):
             v = row["launches_per_step"].get(path, 0) if row else 0

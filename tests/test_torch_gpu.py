@@ -14,8 +14,11 @@ centred norm and the Barrett-64 reduction of ops/dyadic.py, the per-op
 Evaluator's ex1 chain at N=4096 against the plain path, K12's passes of
 the four-step int8 NTT (ops/ntt_mxu.py) against their plain versions and
 K1, and the model zoo's dense layer (both matvec forms), MLP,
-multi-channel convolution and BFV matvec at N=1024 against the same
-builders on the CPU.  They need a CUDA card and skip without one; on a machine with
+multi-channel convolution and BFV matvec at N=1024, and the comparison
+builders (sign, max, sqrt), the encrypted matmul (one and four heads) and
+encrypted attention (one and two heads) at the CPU tests' rings against
+the same builders on the CPU, and K3's pairwise mode at the d=32 matmul's
+contraction shape.  They need a CUDA card and skip without one; on a machine with
 an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
@@ -1666,4 +1669,107 @@ def test_zoo_builders_match_cpu(card, form):
     launched = {k: cuda.LAUNCHES[k] - before[k] for k in before}
     assert launched["ntt"] and launched["contract"] and launched["galois"]
     assert launched["tensor_product"] == (0 if bfv else 1)     # one square at most
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("terms", [32, 64, 63, 126])
+def test_contract_pairwise_at_the_matmul_shape(card, terms):
+    """K3's pairwise mode at the d=32 matmul's contraction (batch 16, level
+    1 of [50, 40 x 4, 50]: four primes, N=2048): d terms (components 0 and
+    2), 2d (component 1) and, with several heads, 2d - 1 and 2(2d - 1),
+    against contract_plain, with every residue of one row at p - 1."""
+    from gemini_seal_tpu_torch.ops.modops import contract_plain
+
+    mods = T.CoeffModulus.create(2048, [50, 40, 40, 40, 40, 50])[:4]
+    mods = [m.value for m in mods]
+    limbs = LimbConstants.from_moduli(mods, card)
+    rng = np.random.default_rng(terms)
+    a = _res(rng, mods, (16, terms), 2048)
+    w = _res(rng, mods, (16, terms), 2048)
+    a[3], w[3] = (np.asarray(mods, dtype=np.uint64) - 1)[None, :, None], \
+        (np.asarray(mods, dtype=np.uint64) - 1)[None, :, None]
+    at, wt = to_tensor(a, card).unsqueeze(0), to_tensor(w, card)
+    consts = [limbs.p.reshape(-1), limbs.ratio0.reshape(-1), limbs.ratio1.reshape(-1)]
+    before = cuda.LAUNCHES.copy()
+    got = contract_mulmod_128(at, wt, *consts, pairwise=True)
+    assert cuda.LAUNCHES["contract:pairwise"] == before["contract:pairwise"] + 1
+    assert cuda.LAUNCHES["contract"] == before["contract"] + 1
+    want = contract_plain(at, wt, *consts)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 16, 4, 2048) and torch.equal(got, want)
+
+
+def _compare_context(n, bits, device):
+    parms = T.EncryptionParameters(T.SchemeType.CKKS)
+    parms.set_poly_modulus_degree(n)
+    parms.set_coeff_modulus(T.CoeffModulus.create(n, bits))
+    parms.set_random_seed(tuple(range(8)))
+    return T.SealContext(parms, sec_level=T.SecLevelType.none, device=device)
+
+
+@pytest.mark.parametrize("form", ["sign", "max", "sqrt", "matmul_h1", "matmul_h4",
+                                  "attention_h1", "attention_h2"])
+def test_compare_attention_builders_match_cpu(card, form):
+    """The comparison builders, the matmul and attention at the CPU tests'
+    rings (sign and max at N=256 on [50, 40 x 13, 50], sqrt on [50, 40 x 14,
+    50]; the matmul at d=4, N=32 and four heads at N=128; attention at d=4,
+    N=32 and two heads at N=64, 18 levels) on the card against the same
+    builders on the CPU, bit for bit, keys and batch-2 inputs made on the
+    CPU; every kernel call on the card sees contiguous tensors."""
+    from torch_helpers import contiguous_calls
+
+    sc = 2.0 ** 40
+    heads = 4 if form == "matmul_h4" else 2 if form == "attention_h2" else 1
+    if form.startswith("matmul"):
+        n, bits = 32 * heads, [50, 40, 40, 40, 40, 50]
+    elif form.startswith("attention"):
+        n, bits = 32 * heads, [50] + [40] * 18 + [50]
+    else:
+        n, bits = 256, [50] + [40] * (14 if form == "sqrt" else 13) + [50]
+    devs = ("cpu", card)
+    ctxs = {d: _compare_context(n, bits, d) for d in devs}
+    cods = {d: T.CKKSEncoder(ctxs[d], device=d) for d in devs}
+    kg = T.KeyGenerator(ctxs["cpu"], device="cpu")
+    enc = T.Encryptor(ctxs["cpu"], kg.public_key(), device="cpu")
+    rng = np.random.default_rng(37)
+    slots = n // 2
+
+    def ct(lo, hi):
+        return torch.stack([enc.encrypt(cods["cpu"].encode(
+            rng.uniform(lo, hi, slots).tolist(), sc)).data] * 2)
+
+    rk = kg.relin_keys().stacked(2)
+    if form == "sign":
+        fns = {d: T.build_ckks_sign(ctxs[d], sc, cods[d], device=d)[0] for d in devs}
+        args = (ct(-1, 1), rk)
+    elif form == "max":
+        fns = {d: T.build_ckks_max(ctxs[d], sc, cods[d], device=d)[0] for d in devs}
+        args = (ct(-0.5, 0.5), ct(-0.5, 0.5), rk)
+    elif form == "sqrt":
+        fns = {d: T.build_ckks_sqrt(ctxs[d], sc, cods[d], iters=3, device=d)[0] for d in devs}
+        args = (ct(0.5, 1.5), rk)
+    else:
+        if form.startswith("matmul"):
+            fns = {d: T.build_ckks_matmul_square(ctxs[d], 4, sc, cods[d], heads=heads,
+                                                 device=d)[0] for d in devs}
+            steps = fns["cpu"].rot_steps
+            cts = (ct(-1, 1), ct(-1, 1))
+        else:
+            built = {d: T.build_ckks_attention(ctxs[d], 4, sc, cods[d], iters=4, heads=heads,
+                                               device=d) for d in devs}
+            fns = {d: b[0] for d, b in built.items()}
+            steps = built["cpu"][3]
+            cts = (ct(-0.5, 0.5), ct(-0.5, 0.5), ct(-0.5, 0.5))
+        elts = ctxs["cpu"].first_context_data().galois_tool.get_elts_from_steps(steps)
+        args = cts + (kg.galois_keys(elts).stacked(*elts), rk)
+    want = fns["cpu"](*args)
+    before = cuda.LAUNCHES.copy()
+    with contiguous_calls():
+        got = fns[card](*(x.to(card) for x in args))
+    torch.cuda.synchronize()
+    launched = {k: cuda.LAUNCHES[k] - before[k] for k in before}
+    assert launched["ntt"] and launched["contract"] and launched["elementwise"]
+    if form.startswith(("matmul", "attention")):
+        assert launched["contract:pairwise"] == 3 * (1 if form.startswith("matmul") else 2)
+        assert launched["galois"]
     assert torch.equal(got.cpu(), want)

@@ -129,6 +129,13 @@ def test_entry_points_default_to_the_card():
                  lambda: T.build_ckks_logreg_train_step(ctx, 2, 2, [0, 1], 0.1, 2.0 ** 20,
                                                         encoder),
                  lambda: T.build_ckks_inverse(ctx, 2.0 ** 20, encoder, iters=1),
+                 lambda: T.build_ckks_rsqrt(ctx, 2.0 ** 20, encoder, iters=1),
+                 lambda: T.build_ckks_sqrt(ctx, 2.0 ** 20, encoder, iters=1),
+                 lambda: T.build_ckks_sign(ctx, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_relu(ctx, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_max(ctx, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_matmul_square(ctx, 2, 2.0 ** 20, encoder),
+                 lambda: T.build_ckks_attention(ctx, 2, 2.0 ** 20, encoder),
                  lambda: build_ckks_bootstrap(ctx, 2.0 ** 20, encoder),
                  lambda: ChebyEvalMod(ctx, cds, [1], [None], [1], encoder, 0, 2.0 ** 20,
                                       [0.0, 1.0], 1, False),
@@ -203,7 +210,9 @@ def test_chip_smoke_cpu_rehearsal():
                      "bfv_rotate_many", "bfv_rotate_many_prepermuted",
                      "ckks_mul_relin_rescale_n16384", "ckks_poly_eval_n32768", "n65536",
                      "bootstrap_n4096", "dense8x8_n8192", "dense_layer8x8_n8192",
-                     "dense_layer8x8_bsgs_n8192", "cnn16x16_n4096", "bfv_matvec8x8_n8192"]
+                     "dense_layer8x8_bsgs_n8192", "cnn16x16_n4096", "bfv_matvec8x8_n8192",
+                     "relu_n8192", "max_n8192", "sqrt_n8192", "matmul_d32_n2048",
+                     "attention_d32_n2048", "attention_d16_n512", "attention_heads4_d4_n128"]
     paths = [json.loads(l) for l in lines if '"main_path"' in l]
     assert [p["path"] for p in paths] == ["mul_relin_rescale", "train_step", "rotate_many",
                                           "bfv_mul_relin_chain", "bfv_mul_relin",
@@ -220,7 +229,9 @@ def test_chip_smoke_cpu_rehearsal():
                                           "ntt_mxu_n16384", "ntt_mxu_n8192",
                                           "dense_layer8x8_n8192", "cnn16x16_n4096",
                                           "bfv_matvec8x8_n8192", "logreg_train_m64_f16_n8192",
-                                          "logreg_f16_n8192", "inverse_ex14_n256"]
+                                          "logreg_f16_n8192", "inverse_ex14_n256",
+                                          "relu_n8192", "matmul_d32_n2048",
+                                          "attention_d32_n2048", "attention_d16_n512"]
     assert all(p["decode_exact"] for p in paths[3:7])
     assert paths[6]["key_forms_decode_equal"]
     assert paths[2]["max_abs_decode_diff_between_key_forms"] < 1e-5
@@ -257,6 +268,18 @@ def test_chip_smoke_cpu_rehearsal():
     assert paths[27]["max_abs_decode_err"] < 1e-2 and paths[27]["out_scale_is_input_scale"]
     assert paths[28]["max_abs_decode_err"] < 1e-2
     assert paths[29]["max_abs_decode_err"] < 2e-2 and paths[29]["levels_consumed"] == 5
+    # the comparison builders, the matmul and attention: ReLU within 1e-2 of
+    # x (1 + sign(x)) / 2 (its batch rows equal), max within 2e-2 of
+    # np.maximum off the sign gap, sqrt within 2e-3 relative, the matmul
+    # within 1e-2 of A @ B, attention within 1e-2 and four heads within 1e-3
+    # of the numpy attention
+    assert paths[30]["max_abs_decode_err"] < 1e-2 and paths[30]["rows_equal"]
+    assert paths[30]["forms"]["max"]["max_abs_decode_err"] < 2e-2
+    assert paths[30]["forms"]["sqrt"]["max_rel_decode_err"] < 2e-3
+    assert paths[31]["max_abs_decode_err"] < 1e-2
+    for p in paths[32:34]:
+        assert p["max_abs_decode_err"] < 1e-2 and p["levels"] == 14 + p["goldschmidt_iters"], p
+    assert paths[33]["forms"]["heads4"]["max_abs_decode_err"] < 1e-3
     for form in [json.loads(l) for l in lines if '"batch2"' in l][20:]:
         assert form["equal_to_plain"] and (form.get("decode_exact")
                                            or form["max_abs_decode_err"] < 1e-2), form
