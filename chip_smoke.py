@@ -5,7 +5,7 @@
     python3 chip_smoke.py --cpu-rehearsal  # small rings on the CPU, plain versions
     python3 chip_smoke.py --nccl-only      # on four cards: only the NCCL phase
 
-Thirty-four paths run, each driven once with every launch counter set to 0
+Thirty-five paths run, each driven once with every launch counter set to 0
 just before it and read just after it.  Three are CKKS, on bench.py's ring
 (N=8192, CoeffModulus.create(8192, [50, 40, 40, 50]), one special prime,
 seed range(71, 79), scale 2^40):
@@ -166,6 +166,26 @@ attention at bench_all.py's cells, batch 16, keygen in bench_all's order
   script's time budget), and runs four heads of d=8 at batch 2 with their
   own keys (within 1e-3 of each head's attention).
 
+One is the wire-to-wire server (models/serving.py), tools/bench_serving.py's
+shape on dense_layer8x8_n8192's ring, step and keys, batch 16, COMPR_NONE:
+
+- serving_dense8x8_n8192: sixteen requests x_i from default_rng(43),
+  encoded with encode_batch, served as full blobs (ser.save of a public-key
+  encryption, 3 primes) and as seeded blobs (encrypt_symmetric_serializable,
+  half the bytes); every served blob must equal ser.save of the step's own
+  output on the same stacked input, the seeded blobs must expand to the c1
+  the encryptor drew, decrypt_batch of a served batch must equal
+  per-ciphertext decrypt bit for bit and decode within 1e-3 of
+  (M x + b)^2; then examples/ex6's flow (N=4096, [40, 30, 30], parms seed
+  range(8): parameters and ciphertext in deflate, relin keys, the server's
+  square + relinearize + rescale through the Evaluator) must have the JAX
+  package's sha256 digests (EX6).  With the kernels unwrapped it then times
+  submit over 24 batches, submit_stream over the same, seeded submit_stream
+  over 8, the step alone and each host stage of a batch (load and check,
+  stack and upload, step, download, save), and prints them on a `serving`
+  line with the seeded / full bytes ratio, the wire rate over the step's
+  and whether the native host library was loaded.
+
 With four cards an NCCL phase runs the csp4 and limb4 steps, one process
 per card, against the single-card step; with fewer it says so.
 
@@ -190,7 +210,7 @@ The script
    grids, among them K8's at the N=4096 refresh, K9's at ex1's
    multiply_plain and K10's at ex1's [2, 2, 4096] (in its clusters of
    eight CTAs, and as a plain launch);
-3. drives the thirty paths; as each kernel call happens it
+3. drives the thirty-five paths; as each kernel call happens it
 4. holds every distinct kernel call (function, mode, shapes) against its
    plain PyTorch version on the same inputs on the card (bit-exact; the
    launches of the check are taken off the counters), and times each call
@@ -321,13 +341,16 @@ PATH_KERNELS.update({
     "attention_d16_n512": ("ntt", "tensor_product", "contract", "elementwise", "galois",
                            "contract:broadcast", "contract:pairwise"),
 })
+# the wire-to-wire server runs the dense layer's step on the hoisted matvec
+PATH_KERNELS["serving_dense8x8_n8192"] = ("ntt", "tensor_product", "contract", "elementwise",
+                                          "galois")
 # paths whose step repeats a call shape many times: each distinct call is
 # timed once and its time counted for every call of that shape
 TIME_ONCE = ("bootstrap_n4096", "per_op_bfv_n4096", "per_op_bfv_n8192_levels", "per_op_ckks",
              "device_evaluator_n8192", "dense_layer8x8_n8192", "cnn16x16_n4096",
              "bfv_matvec8x8_n8192", "logreg_train_m64_f16_n8192", "logreg_f16_n8192",
              "inverse_ex14_n256", "relu_n8192", "matmul_d32_n2048", "attention_d32_n2048",
-             "attention_d16_n512")
+             "attention_d16_n512", "serving_dense8x8_n8192")
 
 # bench_all.py's bootstrap cell (bench_all.py:445-508) run by the JAX package
 # eagerly on the CPU (tests/test_torch_bootstrap.py::test_bench_all_cell_digests
@@ -391,6 +414,18 @@ EX3 = {"sha256": "583f0523a09df9fa4371332e912aefe52794564b702aa2c6f1901f5b5d45cd
        "budgets": [132, 100, 82, 50], "degree": 8}
 EX8 = {"sha256": "27c348c9e4ef004a148848d73553eb192a24255696a54f5bfd2c94edb13bdee6",
        "decodes": [0.01, 0.05, 0.13, 0.25]}
+# EX6: examples/ex6_serialization.py's flow (CKKS N=4096, [40, 30, 30],
+# tc128, scale 2^30) at parms seed range(8) in the JAX package
+# (tests/test_torch_serialization.py::test_ex6_digests recomputes these): the
+# sha256 of the parameters' and the ciphertext's deflate blobs, of the relin
+# keys' blob and of the server's squared, relinearized and rescaled result,
+# and the first two decoded slots
+EX6 = {"parms_deflate_sha256": "7cfe6169bf19b8830bf132cda3f4a7910d71ce17a1a6b3485e3b16939c793d1a",
+       "ciphertext_deflate_sha256":
+           "84ffe7d06801bebd6b3240d424783c8b343737e41b61f02eac0436bb5b330bc1",
+       "relin_keys_sha256": "c1aee47cc3edeaf39bad3c1f2d1a41734e0d6f1d2b1eb39b5fbd67079e3f0714",
+       "result_sha256": "535c58441789bb24325f06bfdb7b6ff4eeeb80bf71c35d4a2cead09c7a6456a1"}
+EX6_SQUARES = [9.859595999410143, 7.387522704063388]
 # ... and the kernels each BFV path's encryption and decryption must launch
 PHASE_KERNELS = {"encode_encrypt": ("scale_round",), "decrypt_decode": ("scale_round",)}
 # kernels whose wrapper names its mode first: the kernels line gives each
@@ -752,6 +787,8 @@ class Recorder:
                      ntt_mxu.mxu_pass: "ntt_mxu"}
         self.check = check
         self.launches = cuda.LAUNCHES
+        # the one recorder of a run, for the paths that pause it
+        Recorder.current = self
         self.path = None
         self.phase = None
         self._patched = []
@@ -765,14 +802,25 @@ class Recorder:
                 continue
             for attr, value in list(vars(mod).items()):
                 fn, wrapper = wrapped.get(id(value), (None, None))
-                if fn is value:
+                if fn is not None and fn is value:
                     setattr(mod, attr, wrapper)
-                    self._patched.append((mod, attr, fn))
+                    self._patched.append((mod, attr, fn, wrapper))
 
     def remove(self):
-        for mod, attr, fn in self._patched:
+        for mod, attr, fn, _ in self._patched:
             setattr(mod, attr, fn)
         self._patched = []
+
+    def pause(self):
+        """The kernels unwrapped for a timed run inside the paths (resume()
+        wraps them again)."""
+        self._paused = self._patched
+        self.remove()
+
+    def resume(self):
+        for mod, attr, _, wrapper in self._paused:
+            setattr(mod, attr, wrapper)
+        self._patched = self._paused
 
     def _wrap(self, kernel, fn):
         def wrapped(*args, **kwargs):
@@ -2898,6 +2946,155 @@ def main(argv=None) -> int:
         if not err_iv < 2e-2:
             raise AssertionError(f"inverse_ex14_n256's softmax decodes {err_iv} from softmax(x)")
 
+        def serving_path():
+            # serving_dense8x8_n8192: tools/bench_serving.py's shape on the dense
+            # layer's ring and step (layer_dl, gk8, rk_dl): the wire-to-wire
+            # EncryptedComputeServer at batch zb, COMPR_NONE.  Sixteen requests
+            # x_i from default_rng(43) (the rehearsal: two), served 24 times as
+            # full blobs (ser.save(enc8.encrypt(pt)), 3 primes) and 8 times as
+            # seeded ones (encrypt_symmetric_serializable); then ex6's flow
+            from gemini_seal_tpu_torch import serialization as ser
+            from gemini_seal_tpu_torch.models.serving import EncryptedComputeServer
+            from gemini_seal_tpu_torch.utils import native as host_lib
+
+            n_full, n_seeded = (2, 1) if rehearsal else (24, 8)
+            wait = torch.cuda.synchronize if not rehearsal else (lambda: None)
+            t0 = begin("serving_dense8x8_n8192")
+            set_phase("encode_encrypt")
+            xs = np.random.default_rng(43).uniform(-1, 1, size=(zb, 8))
+            pts = encoder8.encode_batch([[x[i % 8] for i in range(slots8)] for x in xs], 2.0 ** 40)
+            cts = [enc8.encrypt(pt) for pt in pts]
+            full = [ser.save(ct) for ct in cts]
+            enc_s = T.Encryptor(ctx8, secret_key=kg8.secret_key, device=device)
+            scts = [enc_s.encrypt_symmetric_serializable(pt) for pt in pts]
+            seeded = [s.save() for s in scts]
+            set_phase("step")
+            server = EncryptedComputeServer(ctx8, layer_dl, [gk8, rk_dl], pid_dl, True, scale_dl,
+                                            zb, device=device)
+            served, per_step = count_step(server.submit, full)
+            set_phase("reference")
+            # the step's own output on the same stacked input, saved
+            def saved(batch):
+                out = layer_dl(torch.stack(batch), gk8, rk_dl)
+                return [ser.save(T.Ciphertext(out[i], pid_dl, True, scale_dl)) for i in range(zb)]
+
+            want = saved([ct.data for ct in cts])
+            want_s = saved([s.ct.data for s in scts])
+            checks = {"submit_equals_step": served == want,
+                      "seeded_expands_to_drawn_c1": all(
+                          torch.equal(ser.load_ciphertext(b, ctx8).data[1], s.ct.data[1])
+                          for b, s in zip(seeded, scts)),
+                      "seeded_submit_equals_step": server.submit(seeded) == want_s}
+            set_phase("decrypt_decode")
+            outs = torch.stack([ser.load_ciphertext(b, ctx8).data for b in served])
+            plains = dec8.decrypt_batch(outs, pid_dl, True, scale_dl)
+            checks["decrypt_batch_equals_decrypt"] = all(
+                torch.equal(p.data, dec8.decrypt(T.Ciphertext(outs[i], pid_dl, True,
+                                                              scale_dl)).data)
+                for i, p in enumerate(plains))
+            err = max(max_err(row[:8], (M_dl @ x + b_dl) ** 2)
+                      for row, x in zip(encoder8.decode_batch(plains), xs))
+            # ex6's flow (examples/ex6_serialization.py: N=4096, [40, 30, 30],
+            # tc128, scale 2^30) at parms seed range(8): the parameters and the
+            # ciphertext in deflate, the relin keys and the server's square,
+            # relinearize and rescale on the wire objects (the Evaluator)
+            set_phase("ex6")
+            parms6 = T.EncryptionParameters(T.SchemeType.CKKS)
+            parms6.set_poly_modulus_degree(4096)
+            parms6.set_coeff_modulus(T.CoeffModulus.create(4096, [40, 30, 30]))
+            parms6.set_random_seed(tuple(range(8)))
+            parms_blob = ser.save(parms6, ser.COMPR_DEFLATE)
+            client_parms = ser.load_parms(parms_blob)
+            client_parms.set_random_seed(tuple(range(8)))
+            ctx6 = T.SealContext(client_parms, device=device)
+            kg6 = T.KeyGenerator(ctx6, device=device)
+            cod6 = T.CKKSEncoder(ctx6, device=device)
+            ct_blob = ser.save(T.Encryptor(ctx6, kg6.public_key(), device=device).encrypt(
+                cod6.encode([3.14, 2.718], 2.0 ** 30)), ser.COMPR_DEFLATE)
+            rk_blob = ser.save(kg6.relin_keys())
+            sctx6 = T.SealContext(ser.load_parms(parms_blob), device=device)
+            ev6 = T.Evaluator(sctx6, device=device)
+            result_blob = ser.save(ev6.rescale_to_next(ev6.relinearize(
+                ev6.square(ser.load_ciphertext(ct_blob, sctx6)),
+                ser.load_relin_keys(rk_blob, sctx6))))
+            got6 = cod6.decode(T.Decryptor(ctx6, kg6.secret_key, device=device).decrypt(
+                ser.load_ciphertext(result_blob, ctx6)))
+            ex6 = {k: hashlib.sha256(b).hexdigest() for k, b in (
+                ("parms_deflate_sha256", parms_blob), ("ciphertext_deflate_sha256", ct_blob),
+                ("relin_keys_sha256", rk_blob), ("result_sha256", result_blob))}
+            checks["ex6_digests"] = ex6 == EX6 and got6[:2] == EX6_SQUARES
+            end("serving_dense8x8_n8192", t0, per_step, batch=zb, max_abs_decode_err=err,
+                checks=checks, ex6=ex6, blob_bytes={"full": len(full[0]),
+                                                     "seeded": len(seeded[0])})
+            if not (all(checks.values()) and err < 1e-3):
+                raise AssertionError(f"serving_dense8x8_n8192: {checks}, decodes {err} "
+                                     "from (M x + b)^2")
+
+            # the rates, with the kernels unwrapped: submit over n_full batches,
+            # submit_stream over the same, seeded submit_stream over n_seeded,
+            # the step alone, and the host ms of each stage of a batch
+            Recorder.current.pause()
+            server.warm(full[0])
+            wait()
+            t1 = time.perf_counter()
+            got = [server.submit(full) for _ in range(n_full)]
+            dt_submit = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            got_stream = list(server.submit_stream([full] * n_full))
+            dt_stream = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            got_seeded = list(server.submit_stream([seeded] * n_seeded))
+            dt_seeded = time.perf_counter() - t1
+            a_sv = torch.stack([ct.data for ct in cts])
+            layer_dl(a_sv, gk8, rk_dl)
+            wait()
+            t1 = time.perf_counter()
+            for _ in range(n_full):
+                layer_dl(a_sv, gk8, rk_dl)
+            wait()
+            dt_step = time.perf_counter() - t1
+            stages = dict.fromkeys(("load_validate_seeded", "load_validate", "stack_upload",
+                                    "step", "download", "save"), 0.0)
+            for _ in range(n_seeded):
+                t1 = time.perf_counter()
+                server.load(seeded)
+                t2 = time.perf_counter()
+                stages["load_validate_seeded"] += (t2 - t1) * 1e3 / n_seeded
+                t1 = time.perf_counter()
+                rows = server.load(full)
+                t2 = time.perf_counter()
+                batch = server.upload(server.stage(rows))
+                wait()
+                t3 = time.perf_counter()
+                out = server.run(batch)
+                wait()
+                t4 = time.perf_counter()
+                host = server.download(out)
+                t5 = time.perf_counter()
+                server.save(zb, host)
+                for k, dt in zip(list(stages)[1:], (t2 - t1, t3 - t2, t4 - t3, t5 - t4,
+                                                    time.perf_counter() - t5)):
+                    stages[k] += dt * 1e3 / n_seeded
+            Recorder.current.resume()
+            equal = {"submit_equals_step": all(g == want for g in got),
+                     "stream_equals_submit": got_stream == got,
+                     "seeded_stream_equals_step": all(g == want_s for g in got_seeded)}
+            step_rate = zb * n_full / dt_step
+            wire = zb * n_full / dt_submit
+            emit({"phase": "serving", "path": "serving_dense8x8_n8192",
+                  "card": "cpu rehearsal" if rehearsal else nvidia_smi_line(),
+                  "batch": zb, "batches": {"full": n_full, "seeded": n_seeded},
+                  "serving_wire_to_wire_req_per_s": wire,
+                  "serving_wire_to_wire_pipelined_req_per_s": zb * n_full / dt_stream,
+                  "serving_seeded_pipelined_req_per_s": zb * n_seeded / dt_seeded,
+                  "ingress_bytes_ratio_seeded_to_full": len(seeded[0]) / len(full[0]),
+                  "host_ms_per_batch": stages,
+                  "ckks_dense_layer8x8_n8192_layers_per_s_same_phase": step_rate,
+                  "wire_to_compute_ratio": wire / step_rate,
+                  "native_host_library": host_lib.available(), "equal": equal})
+            if not all(equal.values()):
+                raise AssertionError(f"serving_dense8x8_n8192 timed runs: {equal}")
+
         def compare_paths(record, within):
             """The comparison builders, the encrypted matmul and encrypted
             attention at bench_all.py's relu, matmul and attention cells, batch
@@ -3169,7 +3366,7 @@ def main(argv=None) -> int:
             z.call.steps = steps
             return z
 
-        return [
+        zoo = [
             record("dense_layer8x8_n8192", "ckks_dense_layer8x8_n8192_layers_per_s", layer_dl,
                    (a_dl, gk8, rk_dl), per_step_dl, lambda d: within(dense_dl_err(d, 1), 1e-3)),
             record("dense_layer8x8_bsgs_n8192", "ckks_dense_layer8x8_bsgs_n8192_layers_per_s",
@@ -3183,6 +3380,8 @@ def main(argv=None) -> int:
                    train_lt, (a_lx, a_lw, gk_lt, rk_lt), per_step_lt),
             record("logreg_f16_n8192", "ckks_logreg_f16_n8192_inferences_per_s", head_lh,
                    (a_lh, gk_lh, rk_lh), per_step_lh)] + compare_paths(record, within)
+        serving_path()
+        return zoo
 
     zoo = zoo_paths()
     recorder.remove()

@@ -6,9 +6,14 @@ stage on the card is a hand-written CUDA kernel for Hopper (sm_90a) under
 beside it that runs for CPU tensors.  Entry points take ``device`` (None
 means the card, and raises when none is present).
 
-Ported so far: keygen (secret, public, relin and Galois keys), public-key
-encrypt and decrypt for BFV and CKKS; the CKKS vector and scalar encode
-and decode, multiply + relinearize + rescale (fused and sequential),
+Ported so far: keygen (secret, public, relin and Galois keys, their
+seed-compressed serializable forms and the powers of s), public-key,
+symmetric and seeded encryption and decryption for BFV and CKKS, one
+ciphertext or a batch at a time; the SEAL wire format (serialization, with
+the checked loaders of valcheck), the wire-to-wire server
+(models.serving.EncryptedComputeServer), the ciphertext health metrics,
+BigUInt and the big-coefficient polynomial helpers; the CKKS vector,
+batch, integer and scalar encode and decode, multiply + relinearize + rescale (fused and sequential),
 rotate, hoisted multi-rotation (plain and counter-rotated keys), the
 flagship train step (multiply + relinearize + rescale, rotate, add;
 ``entry()``) and the deep polynomial evaluation; the BFV BatchEncoder, the
@@ -36,6 +41,8 @@ from .encryptor import Encryptor
 from .decryptor import Decryptor
 from .evaluator import Evaluator
 from .encoders import BatchEncoder, CKKSEncoder, IntegerEncoder
+from .biguint import BigUInt
+from .serialization import SerializableCiphertext, SerializableKSwitchKeys
 from .models.device_evaluator import DeviceEvaluator
 from .models.pipelines import (attention_plan, build_bfv_matvec, build_bfv_mul_relin,
                                build_bfv_mul_relin_modswitch, build_bfv_rotate_many,
@@ -74,6 +81,9 @@ __all__ = [
     "BatchEncoder",
     "CKKSEncoder",
     "IntegerEncoder",
+    "BigUInt",
+    "SerializableCiphertext",
+    "SerializableKSwitchKeys",
     "attention_plan",
     "build_bfv_matvec",
     "build_bfv_mul_relin",

@@ -13,7 +13,13 @@ residues broadcast across N are already its NTT form (no transform); a
 non-finite scalar raises (the JAX package lets an infinite value*scale
 through its size check).  encode_at_base decomposes the same rounded
 coefficients over another modulus set (the key-switch extended base), and
-encode_stack encodes many vectors with one NTT launch.  IntegerEncoder:
+encode_stack encodes many vectors with one NTT launch; encode_batch and
+decode_batch take many vectors through one batched embedding, one
+decomposition and one NTT launch (the serving ingress and egress), and
+encode_int encodes an integer at scale 1.  Coefficients of 2^62 and above
+decompose through the native runtime's ``gst_decompose_rounded`` and the
+decode composes through ``gst_crt_centered_double`` when the host library
+is loaded, else on Python ints and limb planes: the same bits.  IntegerEncoder:
 the legacy base-2 signed-digit encoder, host code (its plaintext is placed
 on the context's device).
 """
@@ -32,7 +38,7 @@ from .context import SealContext
 from .ops.backend import to_numpy, to_tensor
 from .ops.ntt import ntt_forward, ntt_inverse
 from .params import SchemeType
-from .utils import mplimb, numth
+from .utils import mplimb, native, numth
 
 __all__ = ["BatchEncoder", "CKKSEncoder", "ComplexRoots", "IntegerEncoder"]
 
@@ -169,6 +175,17 @@ class BatchEncoder:
         return [[int(v) for v in row] for row in out]
 
 
+def _pow2_table(moduli, smax: int) -> np.ndarray:
+    """[L, smax] table of 2^s mod q_j (the exponents of the mantissa split)."""
+    tab = np.zeros((len(moduli), max(smax, 1)), dtype=np.uint64)
+    for j, p in enumerate(moduli):
+        cur = 1
+        for s in range(smax):
+            tab[j, s] = cur
+            cur = (cur * 2) % p
+    return tab
+
+
 class CKKSEncoder:
     """CKKS canonical embedding (reference: ckks.{h,cpp})."""
 
@@ -252,28 +269,32 @@ class CKKSEncoder:
             return self._encode_scalar(float(values), scale, cd)
         if isinstance(values, complex):
             values = [values] * self.slots
-        dest = self._decompose_exact(self._rounded(values, scale, cd), cd.parms.coeff_modulus)
+        dest = self._decompose_exact(self._rounded([values], scale, cd)[0],
+                                     cd.parms.coeff_modulus)
         out = ntt_forward(to_tensor(dest, self.device), cd.ntt_tables)
         return Plaintext(data=out, parms_id=cd.parms_id, scale=scale)
 
-    def _rounded(self, values, scale: float, cd) -> np.ndarray:
-        """The vector encode's host part (ckks.h:405-617): slot values ->
-        the rounded integer-valued float64 coefficients [N]."""
+    def _rounded(self, values_list, scale: float, cd) -> np.ndarray:
+        """The vector encode's host part (ckks.h:405-617) for a batch in one
+        embedding: slot values (a real or complex scalar entry fills every
+        slot) -> the rounded integer-valued float64 coefficients [B, N]."""
         n = self._n
-        values = list(values)
-        if len(values) > self.slots:
-            raise ValueError("values_size is too large")
+        rows = np.zeros((len(values_list), self.slots), dtype=np.complex128)
+        for b, values in enumerate(values_list):
+            if isinstance(values, (int, float, complex)):
+                values = [values] * self.slots
+            values = list(values)
+            if len(values) > self.slots:
+                raise ValueError("values_size is too large")
+            rows[b, : len(values)] = np.asarray(values, dtype=np.complex128)
         if scale <= 0 or int(math.log2(scale)) + 1 >= cd.total_coeff_modulus_bit_count:
             raise ValueError("scale out of bounds")
-        vals_arr = np.asarray(values, dtype=np.complex128)
-        conj_values = np.zeros(n, dtype=np.complex128)
-        conj_values[self._index_map[: vals_arr.size]] = vals_arr
-        conj_values[self._index_map[self.slots : self.slots + vals_arr.size]] = (
-            np.conj(vals_arr)
-        )
-        conj_values = self._embedding_inverse(conj_values)
-        conj_values *= (1.0 / n) * scale
-        reals = conj_values.real
+        conj = np.zeros((len(values_list), n), dtype=np.complex128)
+        conj[:, self._index_map[: self.slots]] = rows
+        conj[:, self._index_map[self.slots:]] = np.conj(rows)
+        conj = self._embedding_inverse(conj)
+        conj *= (1.0 / n) * scale
+        reals = conj.real
         d = np.maximum(np.abs(reals), 1.0)
         if int(np.max(np.floor(np.log2(d)))) + 2 >= cd.total_coeff_modulus_bit_count:
             raise ValueError("encoded values are too large")
@@ -281,28 +302,28 @@ class CKKSEncoder:
 
     def encode_stack(self, values_list, scale: float, parms_id, moduli=None,
                      ntt_tables=None) -> torch.Tensor:
-        """Many vector encodes at one scale and level with one ``ntt``
-        launch: int64[M, L, N] in NTT form, row m equal to the residues of
+        """Many vector encodes at one scale and level in one batched
+        embedding, one decomposition and one ``ntt`` launch: int64[M, L, N]
+        in NTT form, row m equal to the residues of
         encode(values_list[m], scale, parms_id) (a real or complex scalar
         entry fills every slot).  With `moduli` (Modulus objects or ints)
         and their `ntt_tables` (a device mirror) the same rounded
         coefficients are decomposed over that base instead: e.g. the
         key-switch extended base q ∪ P of the fused matvecs' raw-accumulator
-        products.  Nothing of the JAX package does this batching; the rows
-        are bit-identical to its encode and encode_at_base."""
+        products.  The rows are bit-identical to the JAX package's encode,
+        encode_batch and encode_at_base."""
         cd = self.context.get_context_data(parms_id)
         if cd is None:
             raise ValueError("parms_id is not valid for encryption parameters")
         if moduli is None:
             moduli, ntt_tables = cd.parms.coeff_modulus, cd.ntt_tables
-        rows = []
-        for values in values_list:
-            if isinstance(values, (int, float, complex)):
-                values = [values] * self.slots
-            rows.append(self._decompose_exact(self._rounded(values, scale, cd), moduli))
-        if not rows:
+        values_list = list(values_list)
+        if not values_list:
             raise ValueError("nothing to encode")
-        return ntt_forward(to_tensor(np.stack(rows), ntt_tables.modulus.device), ntt_tables)
+        rounded = self._rounded(values_list, scale, cd)                  # [M, N]
+        dest = self._decompose_exact(rounded.reshape(-1), moduli)        # [L, M N]
+        planes = np.moveaxis(dest.reshape(dest.shape[0], len(values_list), self._n), 1, 0)
+        return ntt_forward(to_tensor(planes, ntt_tables.modulus.device), ntt_tables)
 
     def encode_at_base(self, values, scale: float, parms_id, moduli, ntt_tables):
         """Encode to an arbitrary coprime modulus set: the residues of the
@@ -312,6 +333,33 @@ class CKKSEncoder:
 
         Returns int64[len(moduli), N] in NTT form on the tables' device."""
         return self.encode_stack([values], scale, parms_id, moduli, ntt_tables)[0]
+
+    def encode_int(self, value: int, parms_id=None) -> Plaintext:
+        """Integer encode at scale 1 (reference: ckks.cpp:232-274): the
+        constant polynomial, whose residues broadcast across N are its NTT
+        form (no transform)."""
+        if parms_id is None:
+            parms_id = self.context.first_parms_id
+        cd = self.context.get_context_data(parms_id)
+        if cd is None:
+            raise ValueError("parms_id is not valid for encryption parameters")
+        res = np.array([[int(value) % m.value] for m in cd.parms.coeff_modulus], dtype=np.uint64)
+        out = to_tensor(np.broadcast_to(res, (res.shape[0], self._n)), self.device)
+        return Plaintext(data=out, parms_id=cd.parms_id, scale=1.0)
+
+    def encode_batch(self, values_list, scale: float, parms_id=None) -> List[Plaintext]:
+        """Many slot-value vectors through encode_stack (one batched
+        embedding, one decomposition, one ``ntt`` launch over the [B, L, N]
+        stack): the serving ingress twin of decode_batch.  Plaintext b equals
+        encode(values_list[b], scale, parms_id)."""
+        if parms_id is None:
+            parms_id = self.context.first_parms_id
+        values_list = list(values_list)
+        if not values_list:
+            return []
+        out = self.encode_stack(values_list, scale, parms_id)
+        return [Plaintext(data=out[b], parms_id=parms_id, scale=scale)
+                for b in range(len(values_list))]
 
     def _encode_scalar(self, value: float, scale: float, cd) -> Plaintext:
         """Constant encode: all slots equal -> constant polynomial
@@ -335,12 +383,20 @@ class CKKSEncoder:
     @staticmethod
     def _decompose_exact(rounded: np.ndarray, moduli) -> np.ndarray:
         """Exact RNS residues of already-rounded (integer-valued) doubles:
-        below 2^62 through an exact float->int64 cast, above through the
-        exact mantissa/exponent split (a rounded double IS m * 2^e with a
-        53-bit integer mantissa) on Python ints."""
+        below 2^62 through an exact float->int64 cast; at 2^62 and above
+        through the native runtime's exact mantissa/exponent split (a rounded
+        double is m * 2^e with a 53-bit integer mantissa, so its residue is
+        (m mod p) * (2^e mod p) mod p) when the host library is loaded, else
+        on Python ints."""
         values = [int(getattr(mod, "value", mod)) for mod in moduli]
-        dest = np.zeros((len(values), rounded.shape[0]), dtype=np.uint64)
         small = np.abs(rounded) < 2.0 ** 62
+        if not small.all() and native.available():
+            _, expo = np.frexp(rounded[~small])
+            out = native.decompose_rounded(rounded, np.asarray(values, dtype=np.uint64),
+                                           _pow2_table(values, int(expo.max()) - 53 + 1))
+            if out is not None:
+                return out
+        dest = np.zeros((len(values), rounded.shape[0]), dtype=np.uint64)
         as_int = np.where(small, rounded, 0.0).astype(np.int64)
         for j, p in enumerate(values):
             dest[j] = np.mod(as_int, np.int64(p)).astype(np.uint64)
@@ -370,19 +426,62 @@ class CKKSEncoder:
             return out_arr.tolist()
         return out_arr.real.tolist()
 
+    def decode_batch(self, plains, as_complex: bool = False):
+        """Decode many plaintexts of one parms_id and scale with one
+        ``ntt`` launch and one batched ladder and embedding: the serving
+        egress twin of Decryptor.decrypt_batch.  Row b equals
+        decode(plains[b])."""
+        ps = list(plains)
+        if not ps:
+            return []
+        for p_ in ps:
+            if not p_.is_ntt_form:
+                raise ValueError("plain is not in NTT form")
+            if p_.parms_id != ps[0].parms_id or p_.scale != ps[0].scale:
+                raise ValueError("decode_batch needs homogeneous plaintexts")
+        cd = self.context.get_context_data(ps[0].parms_id)
+        if cd is None:
+            raise ValueError("plain is not valid for encryption parameters")
+        scale = ps[0].scale
+        if scale <= 0 or int(math.log2(scale)) >= cd.total_coeff_modulus_bit_count:
+            raise ValueError("scale out of bounds")
+        n, B = self._n, len(ps)
+        data = torch.stack([p_.data.to(self.device) for p_ in ps])
+        data = to_numpy(ntt_inverse(data, cd.ntt_tables))          # [B, L, n]
+        L = data.shape[1]
+        flat = np.ascontiguousarray(np.moveaxis(data, 0, 1)).reshape(L, B * n)
+        res_real = self._centered_ladder(flat, cd, 1.0 / scale).reshape(B, n)
+        out = self._embedding_forward(res_real.astype(np.complex128))[:, self._index_map[: self.slots]]
+        if as_complex:
+            return [row.tolist() for row in out]
+        return [row.real.tolist() for row in out]
+
     @staticmethod
     def _centered_ladder(data: np.ndarray, cd, inv_scale: float) -> np.ndarray:
         """CRT-compose [L, M] residue planes to centered doubles [M]
         (reference: ckks.h:668-744): v >= (q+1)/2 decodes as -(q - v); the
         LSB-first double ladder keeps the reference's op order, and
         negating the positive-ladder result is bit-exact to the reference's
-        subtract-each-term order (IEEE rounding is sign-symmetric)."""
+        subtract-each-term order (IEEE rounding is sign-symmetric).  With
+        the host library loaded, compose, lift and ladder run in one native
+        pass (gst_crt_centered_double), bit for bit the limb-plane route."""
         q = cd.total_coeff_modulus
         K = max(1, (q.bit_length() + 63) // 64)
-        upper = cd.upper_half_threshold
-        vals = mplimb.compose_ints(data, cd.rns_base)
-        is_neg = np.array([v >= upper for v in vals], dtype=bool)
-        mag = mplimb.ints_to_limbs([q - v if v >= upper else v for v in vals], K)
+        if native.available():
+            consts = mplimb.native_compose_consts(cd.rns_base, K)
+            upper_c = cd.__dict__.get("_upper_limbs_native")
+            if upper_c is None or upper_c.shape[0] != K:
+                upper_c = mplimb.int_to_limbs(cd.upper_half_threshold, K)
+                cd._upper_limbs_native = upper_c
+            out = native.crt_centered_double(data, consts[1], consts[2], consts[3], consts[4],
+                                             upper_c, K, inv_scale)
+            if out is not None:
+                return out
+        v_limbs = mplimb.compose_limbs(data, cd.rns_base, K)
+        upper = mplimb.int_to_limbs(cd.upper_half_threshold, K)[:, None]
+        is_neg = mplimb.geq_limbs(v_limbs, upper)
+        neg_mag = mplimb.sub_from_limbs(mplimb.int_to_limbs(q, K)[:, None], v_limbs)
+        mag = np.where(is_neg[None, :], neg_mag, v_limbs)
         res_real = mplimb.ladder_to_double(mag, inv_scale)
         return np.where(is_neg, -res_real, res_real)
 

@@ -21,7 +21,7 @@ import contextvars
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "to_tensor", "to_numpy", "is_cuda",
+__all__ = ["resolve_device", "to_tensor", "to_numpy", "host_u64", "is_cuda",
            "plain_versions"]
 
 _PLAIN = contextvars.ContextVar("gst_plain_versions", default=False)
@@ -68,6 +68,14 @@ def to_tensor(arr, device) -> torch.Tensor:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int64 residue tensor -> np.uint64 array of the same bit pattern."""
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def host_u64(x) -> np.ndarray:
+    """Residues as a host np.uint64 array: a tensor is pulled to the host
+    (its int64 bit pattern read as u64), an array-like is taken as is."""
+    if isinstance(x, torch.Tensor):
+        return to_numpy(x)
+    return np.asarray(x, dtype=np.uint64)
 
 
 def is_cuda(*tensors: torch.Tensor) -> bool:

@@ -83,14 +83,20 @@ _PINNED_DRAWS = {}
 _PINNED_DRAWS_MAX = 8
 
 
-def _symmetric_draws(parms, coeff_modulus, moduli, n):
+def _symmetric_draws(parms, coeff_modulus, moduli, n, c1_seed=None):
     """The uniform a and the error e of one zero-encryption, as host arrays.
 
     With a pinned parameter seed both streams start afresh at every call
     (as in the JAX package), so every call draws the same a and e: they are
     drawn once per (seed, moduli, N) and reused, which keeps a key set of
-    thousands of bundles from repeating the same host sampling.
+    thousands of bundles from repeating the same host sampling.  With a c1
+    seed, a comes from that seed's own stream (the seeded dataflow).
     """
+    if c1_seed is not None:
+        a = sample_poly_uniform(Blake2xbPRNG(tuple(int(s) for s in c1_seed)), coeff_modulus, n)
+        if parms.random_seed is None:
+            return a, sample_poly_normal(parms_rng(parms), moduli, n)
+        return a, _symmetric_draws(parms, coeff_modulus, moduli, n)[1]
     if parms.random_seed is None:
         return (sample_poly_uniform(BlakePRNGFactory().create(), coeff_modulus, n),
                 sample_poly_normal(parms_rng(parms), moduli, n))
@@ -107,13 +113,16 @@ def _symmetric_draws(parms, coeff_modulus, moduli, n):
 
 
 def encrypt_zero_symmetric(
-    secret_key: SecretKey, context, parms_id, is_ntt_form: bool
+    secret_key: SecretKey, context, parms_id, is_ntt_form: bool, c1_seed=None
 ) -> Ciphertext:
     """(c0, c1) = ([-(a s + e)]_q, a) (reference: rlwe.cpp:204-302).
 
     c1 is drawn from its own stream: a derived one when the parameter seed
-    is pinned (reproducible tests), fresh entropy otherwise.  The seeded
-    (serializable) dataflow comes with the serialization slice.
+    is pinned (reproducible tests), fresh entropy otherwise.  With `c1_seed`
+    the seeded dataflow is used (rlwe.cpp save_seed=true): the raw uniform
+    sample is the stored c1 in the ciphertext's own domain, so that a
+    receiver regenerates it from the seed alone; for BFV the sample is read
+    as the power basis and transformed only to compute c0.
     """
     cd = context.get_context_data(parms_id)
     parms = cd.parms
@@ -126,17 +135,19 @@ def encrypt_zero_symmetric(
     dev = context.device
 
     # a (= c1) uniform, sampled directly in the ciphertext's domain
-    a_host, e_host = _symmetric_draws(parms, coeff_modulus, moduli, n)
+    a_host, e_host = _symmetric_draws(parms, coeff_modulus, moduli, n, c1_seed)
     c1 = to_tensor(a_host, dev)
     e = to_tensor(e_host, dev)
+    seeded_bfv = c1_seed is not None and not is_ntt_form
 
     sk = secret_key.data[:L, :].contiguous()
-    c0 = dyadic_product(sk, c1, limbs)
+    c0 = dyadic_product(sk, ntt_forward(c1, tables) if seeded_bfv else c1, limbs)
     if is_ntt_form:
         e = ntt_forward(e, tables)
     else:
         c0 = ntt_inverse(c0, tables)
-        c1 = ntt_inverse(c1, tables)
+        if not seeded_bfv:
+            c1 = ntt_inverse(c1, tables)
     c0 = negate_poly(add_poly(e, c0, limbs), limbs)
 
     return Ciphertext(

@@ -18,7 +18,8 @@ multi-channel convolution and BFV matvec at N=1024, and the comparison
 builders (sign, max, sqrt), the encrypted matmul (one and four heads) and
 encrypted attention (one and two heads) at the CPU tests' rings against
 the same builders on the CPU, and K3's pairwise mode at the d=32 matmul's
-contraction shape.  They need a CUDA card and skip without one; on a machine with
+contraction shape, the wire-to-wire server and Decryptor.decrypt_batch
+against the same on the CPU.  They need a CUDA card and skip without one; on a machine with
 an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
@@ -1773,3 +1774,81 @@ def test_compare_attention_builders_match_cpu(card, form):
         assert launched["contract:pairwise"] == 3 * (1 if form.startswith("matmul") else 2)
         assert launched["galois"]
     assert torch.equal(got.cpu(), want)
+
+
+def test_server_on_the_card_matches_cpu(card):
+    """The wire-to-wire server (models/serving.py) on the card against the
+    same server on the CPU: the dense layer at N=1024 on the same blobs (full
+    and seed-compressed), submit and the pipelined submit_stream (pinned
+    staging, side-stream upload), byte for byte; the loaders place the data
+    on the card."""
+    from gemini_seal_tpu_torch import serialization as ser
+    from gemini_seal_tpu_torch.models.serving import EncryptedComputeServer
+
+    devs = ("cpu", card)
+    ctxs = {d: _zoo_context(T.SchemeType.CKKS, d) for d in devs}
+    kg = T.KeyGenerator(ctxs["cpu"], device="cpu")
+    cods = {d: T.CKKSEncoder(ctxs[d], device=d) for d in devs}
+    rng = np.random.default_rng(43)
+    M = rng.uniform(-0.5, 0.5, size=(8, 8))
+    diags = {d: [M[i % 8, (i + d) % 8] for i in range(512)] for d in range(8)}
+    bias = rng.uniform(-0.2, 0.2, size=512).tolist()
+    built = {d: T.build_ckks_dense_layer(ctxs[d], diags, bias, 2.0 ** 40, cods[d], device=d)
+             for d in devs}
+    elts = ctxs["cpu"].first_context_data().galois_tool.get_elts_from_steps(
+        built["cpu"][0].rot_steps)
+    keys = [kg.galois_keys(elts).stacked(*elts), kg.relin_keys().stacked(2)]
+    servers = {d: EncryptedComputeServer(ctxs[d], built[d][0], keys, built[d][1], True,
+                                         built[d][2], 4, device=d) for d in devs}
+    pts = cods["cpu"].encode_batch([rng.uniform(-1, 1, 512).tolist() for _ in range(4)],
+                                   2.0 ** 40)
+    full = [ser.save(T.Encryptor(ctxs["cpu"], kg.public_key(), device="cpu").encrypt(p))
+            for p in pts]
+    enc = T.Encryptor(ctxs["cpu"], secret_key=kg.secret_key, device="cpu")
+    seeded = [enc.encrypt_symmetric_serializable(p).save() for p in pts]
+    batches = [full, full[:3], seeded, seeded[:1]]
+    want = [servers["cpu"].submit(b) for b in batches]
+    before = cuda.LAUNCHES.copy()
+    got = [servers[card].submit(b) for b in batches]
+    launched = {k: cuda.LAUNCHES[k] - before[k] for k in before}
+    assert launched["ntt"] and launched["contract"] and launched["galois"]
+    assert got == want
+    assert list(servers[card].submit_stream(batches)) == want
+    assert ser.load_ciphertext(seeded[0], ctxs[card]).data.device.type == "cuda"
+
+
+@pytest.mark.parametrize("scheme", ["BFV", "CKKS"])
+def test_decrypt_batch_on_the_card(card, scheme):
+    """Decryptor.decrypt_batch on the card: one pass over the batch (K4; K1,
+    K3 and K7 for BFV) equal to per-ciphertext decrypt on the card and to
+    decrypt_batch on the CPU, bit for bit."""
+    sch = getattr(T.SchemeType, scheme)
+    devs = ("cpu", card)
+    ctxs = {d: _zoo_context(sch, d) for d in devs}
+    kg = T.KeyGenerator(ctxs["cpu"], device="cpu")
+    decs = {d: T.Decryptor(ctxs[d], T.SecretKey(kg.secret_key.data.to(d),
+                                                kg.secret_key.parms_id), device=d)
+            for d in devs}
+    enc = T.Encryptor(ctxs["cpu"], kg.public_key(), device="cpu")
+    rng = np.random.default_rng(3)
+    if sch == T.SchemeType.BFV:
+        cod = T.BatchEncoder(ctxs["cpu"], device="cpu")
+        cts = [enc.encrypt(cod.encode(rng.integers(0, 1 << 16, 1024).tolist())) for _ in range(3)]
+    else:
+        cod = T.CKKSEncoder(ctxs["cpu"], device="cpu")
+        cts = [enc.encrypt(cod.encode(rng.uniform(-1, 1, 512).tolist(), 2.0 ** 40))
+               for _ in range(3)]
+    meta = (cts[0].parms_id, cts[0].is_ntt_form, cts[0].scale)
+    data = torch.stack([c.data for c in cts])
+    want = decs["cpu"].decrypt_batch(data, *meta)
+    before = cuda.LAUNCHES.copy()
+    got = decs[card].decrypt_batch(data.to(card), *meta)
+    torch.cuda.synchronize()
+    launched = {k: cuda.LAUNCHES[k] - before[k] for k in before}
+    assert launched["elementwise"]
+    if sch == T.SchemeType.BFV:   # CKKS ciphertexts are in NTT form: no transform
+        assert launched["ntt"] and launched["contract"] and launched["scale_round"]
+    for g, w, c in zip(got, want, cts):
+        assert g.data.device.type == "cuda" and torch.equal(g.data.cpu(), w.data)
+        one = decs[card].decrypt(T.Ciphertext(c.data.to(card), *meta))
+        assert torch.equal(one.data, g.data)

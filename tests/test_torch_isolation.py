@@ -4,10 +4,13 @@ No file of gemini_seal_tpu_torch/ and no part of chip_smoke.py imports jax
 or gemini_seal_tpu; importing the port, the bootstrap, EvalMod and the
 Evaluator, the DeviceEvaluator and the rest of ops/dyadic.py included,
 leaves jax out of sys.modules, and so does importing the multi-device
-schedules of parallel/, K11's ops/ntt_sp.py and K12's ops/ntt_mxu.py;
-every kernel source (K1-K12) is registered and documented; with no card
-present an entry point called without ``device`` raises; and
-chip_smoke.py's CPU rehearsal runs its thirty paths end to end.
+schedules of parallel/, K11's ops/ntt_sp.py and K12's ops/ntt_mxu.py, and
+the host plane's serialization, valcheck, metrics, biguint,
+utils/polyarith and the wire-to-wire server; every kernel source (K1-K12)
+is registered and documented; with no card present an entry point called
+without ``device`` raises (the server and the loaders without a context
+included); and chip_smoke.py's CPU rehearsal runs its thirty-five paths end
+to end.
 """
 
 import ast
@@ -77,7 +80,10 @@ def test_import_leaves_jax_out():
             "gemini_seal_tpu_torch.parallel.mesh, gemini_seal_tpu_torch.parallel.ntt_sp, "
             "gemini_seal_tpu_torch.parallel.keyswitch_sp, "
             "gemini_seal_tpu_torch.parallel.pipeline_csp, gemini_seal_tpu_torch.parallel.behz_sp, "
-            "gemini_seal_tpu_torch.parallel.bootstrap_sp, gemini_seal_tpu_torch.ops.ntt_mxu; "
+            "gemini_seal_tpu_torch.parallel.bootstrap_sp, gemini_seal_tpu_torch.ops.ntt_mxu, "
+            "gemini_seal_tpu_torch.serialization, gemini_seal_tpu_torch.valcheck, "
+            "gemini_seal_tpu_torch.metrics, gemini_seal_tpu_torch.biguint, "
+            "gemini_seal_tpu_torch.utils.polyarith, gemini_seal_tpu_torch.models.serving; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gemini_seal_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -148,7 +154,27 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.Encryptor(ctx, kg.public_key())
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.Encryptor(ctx, secret_key=kg.secret_key)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         T.Decryptor(ctx, kg.secret_key)
+    # the wire format: the loaders place data on the card unless a context or
+    # a device says otherwise, and the server runs on the card
+    from gemini_seal_tpu_torch import serialization as ser
+    from gemini_seal_tpu_torch.models.serving import EncryptedComputeServer
+
+    enc = T.Encryptor(ctx, kg.public_key(), device="cpu")
+    ct = enc.encrypt(encoder.encode([0.5], 2.0 ** 20))
+    blob = ser.save(ct)
+    for make in (lambda: ser.load_ciphertext(blob),
+                 lambda: ser.load_plaintext(ser.save(encoder.encode([0.5], 2.0 ** 20))),
+                 lambda: ser.load_secret_key(ser.save(kg.secret_key)),
+                 lambda: ser.load_public_key(ser.save(kg.public_key())),
+                 lambda: ser.load_relin_keys(ser.save(kg.relin_keys())),
+                 lambda: EncryptedComputeServer(ctx, lambda c: c, [], ct.parms_id, True, 1.0, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert ser.load_ciphertext(blob, device="cpu").data.device.type == "cpu"
+    assert ser.load_ciphertext(blob, ctx).data.device.type == "cpu"
     from gemini_seal_tpu_torch.ops.ntt_mxu import build_mxu_ntt_tables
     from gemini_seal_tpu_torch.parallel.bootstrap_sp import build_ckks_matvec_limb_sharded
     from gemini_seal_tpu_torch.parallel.comm import ThreadGroup, run_spmd
@@ -231,7 +257,8 @@ def test_chip_smoke_cpu_rehearsal():
                                           "bfv_matvec8x8_n8192", "logreg_train_m64_f16_n8192",
                                           "logreg_f16_n8192", "inverse_ex14_n256",
                                           "relu_n8192", "matmul_d32_n2048",
-                                          "attention_d32_n2048", "attention_d16_n512"]
+                                          "attention_d32_n2048", "attention_d16_n512",
+                                          "serving_dense8x8_n8192"]
     assert all(p["decode_exact"] for p in paths[3:7])
     assert paths[6]["key_forms_decode_equal"]
     assert paths[2]["max_abs_decode_diff_between_key_forms"] < 1e-5
@@ -280,6 +307,15 @@ def test_chip_smoke_cpu_rehearsal():
     for p in paths[32:34]:
         assert p["max_abs_decode_err"] < 1e-2 and p["levels"] == 14 + p["goldschmidt_iters"], p
     assert paths[33]["forms"]["heads4"]["max_abs_decode_err"] < 1e-3
+    # the wire-to-wire server: every served blob equal to the step's own output
+    # saved, the seeded blobs expanded to the drawn c1, decrypt_batch equal to
+    # decrypt, ex6's flow with the JAX package's digests (its ring is the
+    # card's), and the timed runs' blobs equal
+    assert paths[34]["max_abs_decode_err"] < 1e-3
+    assert paths[34]["checks"] and all(paths[34]["checks"].values()), paths[34]
+    (serving,) = [json.loads(l) for l in lines if '"phase": "serving"' in l]
+    assert serving["equal"] and all(serving["equal"].values()), serving
+    assert 0.45 < serving["ingress_bytes_ratio_seeded_to_full"] < 0.55
     for form in [json.loads(l) for l in lines if '"batch2"' in l][20:]:
         assert form["equal_to_plain"] and (form.get("decode_exact")
                                            or form["max_abs_decode_err"] < 1e-2), form

@@ -74,7 +74,7 @@ def contiguous_calls():
             continue
         for attr, value in list(vars(mod).items()):
             fn, wrapper = by_id.get(id(value), (None, None))
-            if fn is value:
+            if fn is not None and fn is value:
                 setattr(mod, attr, wrapper)
                 patched.append((mod, attr, fn))
     try:
