@@ -913,6 +913,8 @@ def profile_steps(torch, fn, steps: int, step_ms: float, all_threads: bool = Fal
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from gemini_seal_tpu_torch import tracing
+
     kw = {}
     activities = [ProfilerActivity.CUDA]
     if all_threads:
@@ -930,11 +932,13 @@ def profile_steps(torch, fn, steps: int, step_ms: float, all_threads: bool = Fal
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    # with every thread recorded the "gst_exchange" ranges also come back as
-    # device-side annotation rows, spanning their kernels: not a kernel
+    # the port's spans of the session (gemini_seal_tpu_torch/tracing.py; the
+    # read closes its record): with every thread recorded they also come back
+    # as device-side annotation rows, spanning their kernels: not a kernel
+    spans = set(tracing.summary())
     rows = [{"name": e.key[:80], "calls_per_step": e.count / steps,
              "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
-            for e in events if e.device_type == DeviceType.CUDA and e.key != "gst_exchange"]
+            for e in events if e.device_type == DeviceType.CUDA and e.key not in spans]
     rows.sort(key=lambda r: -r["device_ms_per_step"])
     device_ms = sum(r["device_ms_per_step"] for r in rows)
     out = {"steps": steps, "step_ms": step_ms, "device_ms_per_step": device_ms,

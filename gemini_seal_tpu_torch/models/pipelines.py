@@ -41,6 +41,7 @@ from ..ops.ntt import ntt_forward, ntt_forward_lazy, ntt_inverse
 from ..ops.rnsops import (MultiDropPlan, divide_and_round_multi, divide_and_round_q_last,
                           divide_and_round_q_last_ntt, fast_floor, fastbconv_m_tilde,
                           fastbconv_sk, sm_mrq)
+from ..tracing import span
 
 __all__ = ["build_ckks_mul_relin_rescale", "build_ckks_rotate",
            "build_ckks_rotate_many", "build_ckks_train_step", "build_ckks_poly_eval",
@@ -159,6 +160,7 @@ def build_ckks_mul_relin_rescale(context: SealContext, parms_id=None,
     if fused:
         plan.fused_drop_constants()
 
+        @span("step.ckks_mul_relin_rescale")
         def step(a, b, relin_key):
             c0, c1, c2 = product(a, b)
             ct_k = compute_modup_digits(c2, plan, True)
@@ -170,6 +172,7 @@ def build_ckks_mul_relin_rescale(context: SealContext, parms_id=None,
         tool = cd.device_rns_tool
         tables = cd.ntt_tables
 
+        @span("step.ckks_mul_relin_rescale")
         def step(a, b, relin_key):
             c0, c1, c2 = product(a, b)
             d0, d1 = switch_key(c2, relin_key, plan, True)
@@ -250,6 +253,7 @@ def prepermute_galois_stack(tool, elts, keys_stack):
         keys_stack.shape)
 
 
+@span("keyswitch.inner_product")
 def _shared_digit_inner_product(ct_k, keys_stack, plan: KeySwitchPlan):
     """Key-switch contraction with the rotation axis on the (counter-rotated)
     keys only: the digits are read in place for every rotation (``contract``
@@ -283,6 +287,7 @@ def _rotate_many(context, steps, parms_id, prepermuted_keys: bool, is_ntt: bool)
     rot_tabs = tool.ntt_tables(elts)
     out_tabs, out_mod = (rot_tabs, None) if is_ntt else (tool.coeff_tables(elts), limbs.p)
 
+    @span("step.rotate_many")
     def step(ct, keys_stack):
         c0 = ct[..., 0, :, :].contiguous()
         ct_k = compute_modup_digits(ct[..., 1, :, :], plan, is_ntt)    # hoisted
@@ -360,6 +365,7 @@ def build_bfv_mul_relin(context: SealContext, parms_id=None, square: bool = Fals
     t_bsk = torch.full_like(bsk_limbs.p, t)
     plan = KeySwitchPlan(context, parms_id)
 
+    @span("behz.extend")
     def extend(ct):
         # lazy [0, 4p) lifts into the tensor product's full-range Barrett
         # products, as in the JAX function
@@ -367,6 +373,13 @@ def build_bfv_mul_relin(context: SealContext, parms_id=None, square: bool = Fals
         bsk = sm_mrq(fastbconv_m_tilde(ct, tool), tool)
         return ntt_forward_lazy(ct, cd.ntt_tables), ntt_forward_lazy(bsk, bsk_tables)
 
+    @span("behz.floor")
+    def floor(dq, dbsk):
+        tq = multiply_poly_scalar(ntt_inverse(dq, cd.ntt_tables), t_q, limbs)
+        tbsk = multiply_poly_scalar(ntt_inverse(dbsk, bsk_tables), t_bsk, bsk_limbs)
+        return fastbconv_sk(fast_floor(tq, tbsk, tool), tool)
+
+    @span("step.bfv_mul_relin")
     def step(a, b, relin_key):
         aq, absk = extend(a)
         if b is None:
@@ -376,9 +389,7 @@ def build_bfv_mul_relin(context: SealContext, parms_id=None, square: bool = Fals
             bq, bbsk = extend(b)
             dq = _tensor_product(aq, bq, limbs)
             dbsk = _tensor_product(absk, bbsk, bsk_limbs)
-        tq = multiply_poly_scalar(ntt_inverse(dq, cd.ntt_tables), t_q, limbs)
-        tbsk = multiply_poly_scalar(ntt_inverse(dbsk, bsk_tables), t_bsk, bsk_limbs)
-        c0, c1, c2 = fastbconv_sk(fast_floor(tq, tbsk, tool), tool)
+        c0, c1, c2 = floor(dq, dbsk)
         d0, d1 = switch_key(c2, relin_key, plan, False)
         return torch.stack([add_poly(c0, d0, limbs), add_poly(c1, d1, limbs)], dim=-3)
 

@@ -20,6 +20,10 @@ chunk-local stages of the coefficient-sharded NTT (``sub_row``) and the two
 modes of its cross stages (``ntt_sp``: ``exchange``, ``rows``).  A call
 runs in at most one mode.
 
+``thread_launches()`` is a running count of the launches made on the
+calling thread, raised beside ``LAUNCHES``: a ``tracing`` span's launches
+are its difference between the span's entry and exit.
+
 ``host_memo`` keeps host copies of the small constant tensors whose values
 a kernel takes by value in its parameter struct (``mod_raise``,
 ``negacyclic``, ``infty_norm``, ``ntt_mxu``): each is copied from the device once, at its first call.
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 
 __all__ = ["KERNELS", "MODES", "LAUNCHES", "build", "call", "reset_launches",
-           "BUILD_REPORT", "host_memo"]
+           "thread_launches", "BUILD_REPORT", "host_memo"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -101,11 +105,17 @@ BUILD_REPORT: Dict[str, dict] = {}
 _FUNCS: Dict[str, object] = {}
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+_ON_THREAD = threading.local()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def thread_launches() -> int:
+    """Launches made so far on the calling thread (never reset)."""
+    return getattr(_ON_THREAD, "n", 0)
 
 
 def _nvcc() -> str:
@@ -192,6 +202,7 @@ def call(name: str, *args, mode=None) -> None:
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+    _ON_THREAD.n = getattr(_ON_THREAD, "n", 0) + 1
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
         if mode is not None:

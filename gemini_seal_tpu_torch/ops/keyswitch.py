@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..modulus import Modulus
+from ..tracing import span
 from ..utils import numth
 from .backend import to_tensor
 from .dyadic import LimbConstants
@@ -258,6 +259,7 @@ class KeySwitchPlan:
         return self._fused
 
 
+@span("keyswitch.modup")
 def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool,
                          ntt: NTTOps = IN_CORE_NTT):
     """Bundle-batched mod-up digit decomposition: [..., n_ct, N] target ->
@@ -297,6 +299,7 @@ def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool,
     return torch.where(plan.bundle_diag, ntt_target_ext[..., None, :, :], lifted_ntt)
 
 
+@span("keyswitch.moddown")
 def rescale_special(ext_poly_ntt, plan: KeySwitchPlan, is_ntt_output: bool,
                     ntt: NTTOps = IN_CORE_NTT):
     """Mod-down by P = prod(special primes) (multi_special_primes.cpp:237-304).
@@ -334,7 +337,9 @@ def keyswitch_inner_product(ct_k, key_vector_data, plan: KeySwitchPlan,
     then the special-prime rescale (evaluator.cpp:2313-2361).
 
     Both key components are the two weight sets of one ``contract`` launch
-    in its broadcast mode: the digits are read once for both.
+    in its broadcast mode: the digits are read once for both.  The
+    contraction is span ``keyswitch.inner_product``, each mod-down
+    ``keyswitch.moddown``.
 
     ct_k: [..., n_bundles, n_ext, N] NTT-domain digits;
     key_vector_data: [n_bundles, 2, L_key, N].
@@ -342,6 +347,16 @@ def keyswitch_inner_product(ct_k, key_vector_data, plan: KeySwitchPlan,
     accumulator), or with raw=True the accumulators: [..., n_ext, N], two
     views of one [..., 2, n_ext, N] tensor.
     """
+    acc = _key_contraction(ct_k, key_vector_data, plan)     # [..., 2, n_ext, N]
+    out = [acc[..., l, :, :] for l in range(2)]
+    if not raw:
+        out = [rescale_special(x, plan, is_ntt_output, ntt=ntt) for x in out]
+    return out[0], out[1]
+
+
+@span("keyswitch.inner_product")
+def _key_contraction(ct_k, key_vector_data, plan: KeySwitchPlan):
+    """keyswitch_inner_product's contraction: [..., 2, n_ext, N]."""
     nb, n_ext, N = ct_k.shape[-3:]
     if key_vector_data.shape[0] < nb:
         raise RuntimeError(f"the key has {key_vector_data.shape[0]} bundles, the digits {nb}")
@@ -351,14 +366,11 @@ def keyswitch_inner_product(ct_k, key_vector_data, plan: KeySwitchPlan,
     # components' rows as weights [2, nb, n_ext, N].
     key_ext = key_vector_data[:nb].transpose(0, 1).index_select(-2, plan.ext_key_indices)
     a = ct_k.contiguous().reshape(ct_k.shape[:-3] + (1, nb, n_ext, N))
-    acc = contract_mulmod_128(a, key_ext, ext.p.reshape(-1), ext.ratio0.reshape(-1),
-                              ext.ratio1.reshape(-1))         # [..., 2, n_ext, N]
-    out = [acc[..., l, :, :] for l in range(2)]
-    if not raw:
-        out = [rescale_special(x, plan, is_ntt_output, ntt=ntt) for x in out]
-    return out[0], out[1]
+    return contract_mulmod_128(a, key_ext, ext.p.reshape(-1), ext.ratio0.reshape(-1),
+                               ext.ratio1.reshape(-1))
 
 
+@span("keyswitch.inner_product")
 def batched_rotated_inner_product(ct_k, rot_tabs, keys_stack, plan: KeySwitchPlan):
     """Hoisted multi-rotation key-switch contraction: one ``galois`` launch
     applies every rotation's NTT permutation to the shared mod-up digits,
@@ -381,6 +393,7 @@ def batched_rotated_inner_product(ct_k, rot_tabs, keys_stack, plan: KeySwitchPla
     return keys_stack_inner_product(rk.reshape(lead + (R, nb, n_ext, N)), keys_stack, plan)
 
 
+@span("keyswitch.inner_product")
 def keys_stack_inner_product(digits, keys_stack, plan: KeySwitchPlan):
     """The 128-bit inner product of digits with R stacked keys, one
     ``contract`` launch per key component with the rotation axis as its
@@ -402,6 +415,7 @@ def keys_stack_inner_product(digits, keys_stack, plan: KeySwitchPlan):
     return out[0], out[1]
 
 
+@span("keyswitch.moddown")
 def fused_moddown(c, acc, plan: KeySwitchPlan):
     """One-pass mod-down of (P*c + acc) by Q_D = P * q_last, landing at the
     next level in NTT form (no reference analogue; decrypts equal to the

@@ -29,6 +29,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..tracing import span
 from ..utils import numth
 from ..utils.rns import BaseConverter, RNSTool
 from . import cuda
@@ -559,6 +560,7 @@ def decrypt_scale_and_round(x, tool: DeviceRNSTool):
     return scale_round("t_gamma", tg, tool.t_gamma_consts)
 
 
+@span("rns.rescale")
 def divide_and_round_q_last(x, tool: DeviceRNSTool):
     """Drop the last limb with rounding, power basis: [..., L, N] ->
     [..., L-1, N] (reference: rns.cpp:731-775).
@@ -581,6 +583,7 @@ def divide_and_round_q_last(x, tool: DeviceRNSTool):
                            rest_l.ratio0, rest_l.ratio1, b=temp, s=tool.inv_q_last_mod_q)
 
 
+@span("rns.rescale")
 def divide_and_round_q_last_ntt(x, tool: DeviceRNSTool, tables: NTTTables, ntt=None):
     """Drop the last limb with rounding, NTT-domain input and output
     (reference: rns.cpp:777-851): iNTT the last limb, add q_last/2 and

@@ -39,6 +39,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..ops.backend import resolve_device
+from ..tracing import span
 
 __all__ = ["CollectiveStats", "Group", "ThreadGroup", "DistGroup", "run_spmd", "spawn"]
 
@@ -47,6 +48,9 @@ ALL_GATHER = "all-gather"
 ALL_TO_ALL = "all-to-all"
 PERMUTE = "collective-permute"
 ALL_REDUCE = "all-reduce"
+
+# a ThreadGroup's exchange copies (chip_smoke.py's profile_steps reads the name)
+_EXCHANGE = span("gst_exchange")
 
 
 @dataclass
@@ -251,7 +255,7 @@ class _ThreadRank(Group):
         if lock is not None:
             lock.acquire()
         try:
-            with torch.profiler.record_function("gst_exchange"):
+            with _EXCHANGE:
                 out = take(ex.slots)
         finally:
             if lock is not None:

@@ -27,6 +27,7 @@ def main() -> int:
 
     import chip_smoke
     import gemini_seal_tpu_torch as T
+    from gemini_seal_tpu_torch import tracing
 
     if not torch.cuda.is_available():
         print("profile_probe: no CUDA device is available", file=sys.stderr)
@@ -69,7 +70,9 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         t3 = time.perf_counter()
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        spans = set(tracing.summary())   # the port's ranges, not kernels
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.key not in spans]
         print(json.dumps({"activities": acts, "step_ms": dt * 1e3 / iters,
                           "device_ms_per_step": sum(e.self_device_time_total for e in rows)
                           / 1e3 / 10,

@@ -19,8 +19,10 @@ builders (sign, max, sqrt), the encrypted matmul (one and four heads) and
 encrypted attention (one and two heads) at the CPU tests' rings against
 the same builders on the CPU, and K3's pairwise mode at the d=32 matmul's
 contraction shape, the wire-to-wire server and Decryptor.decrypt_batch
-against the same on the CPU.  They need a CUDA card and skip without one; on a machine with
-an H100 run them with
+against the same on the CPU, and the spans of the four benchmarked
+builders (the stages' device time inside the step's, the outputs
+bit-identical with tracing on and off).  They need a CUDA card and skip
+without one; on a machine with an H100 run them with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
@@ -1852,3 +1854,33 @@ def test_decrypt_batch_on_the_card(card, scheme):
         assert g.data.device.type == "cuda" and torch.equal(g.data.cpu(), w.data)
         one = decs[card].decrypt(T.Ciphertext(c.data.to(card), *meta))
         assert torch.equal(one.data, g.data)
+
+
+@pytest.mark.parametrize("name", ["ckks_mul_relin_rescale", "bfv_mul_relin",
+                                  "ckks_rotate_many", "bfv_rotate_many"])
+def test_spans_on_the_card(card, name):
+    """One step of each benchmarked builder at N=1024 with tracing on
+    (tracing.enable()): its stage spans' device time (CUDA events) sums to
+    no more than the step span's, their launches to no more than the step's,
+    and the output equals the step's with tracing off, bit for bit."""
+    from test_torch_tracing import STAGES, build
+
+    from gemini_seal_tpu_torch import tracing
+
+    fn, args = build(name, card)
+    off = fn(*args)
+    torch.cuda.synchronize()
+    tracing.enable()
+    try:
+        on = fn(*args)
+    finally:
+        tracing.disable()
+    rec = tracing.summary()
+    tracing.reset()
+    assert {k: v["count"] for k, v in rec.items()} == STAGES[name]
+    step = next(k for k in rec if k.startswith("step."))
+    stages = [v for k, v in rec.items() if k != step]
+    assert all(v["device_s"] > 0 and v["launches"] > 0 for v in stages)
+    assert sum(v["device_s"] for v in stages) <= rec[step]["device_s"]
+    assert sum(v["launches"] for v in stages) < rec[step]["launches"]
+    assert torch.equal(off, on)
