@@ -25,7 +25,7 @@ multi_special_primes.cpp and Evaluator::switch_key_inplace):
 - :func:`fused_moddown`: one rounded division of (P*c + acc) by
   P*q_last, two ``elementwise`` epilogues around ``ntt`` and ``contract``.
 
-Indexing and layout (``index_select``, ``pad``, ``where`` with the bundle
+Indexing and layout (``index_select``, ``index_copy_`` onto the bundle
 diagonal, ``cat``, ``contiguous``) stay plain torch: none of it is modular
 arithmetic.
 """
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..modulus import Modulus
 from ..tracing import span
@@ -115,7 +114,8 @@ class KeySwitchPlan:
         # Bundle mod-up data (modup_to_single_rns, :109-141): for bundle b
         # with limb set S, matrix[dst, i] = (Q_S / q_i) mod p_dst and
         # inv[i] = (Q_S / q_i)^{-1} mod q_i.  Diagonal rows (dst in S) are
-        # unused (masked by the caller).  The last bundle may be short
+        # unused: the mod-up overwrites them with the NTT-form target's rows
+        # (diag_rows).  The last bundle may be short
         # (n_ct % n_sp != 0): its padding slots have inv = 0, so they
         # contribute nothing, with clamped gather indices.
         bundles = []
@@ -152,7 +152,15 @@ class KeySwitchPlan:
             diag[b, rns0:rns1, 0] = True
         self.bundle_shape = (self.n_bundles, s_max)
         self.bundle_sel = torch.from_numpy(sel.ravel().copy()).to(dev)
+        # every bundle full: the selection is the ct limbs in order
+        self.bundle_sel_identity = self.n_bundles * s_max == n_ct
         self.bundle_diag = torch.from_numpy(diag).to(dev)
+        # the diagonal rows (b, i), i in S_b, of the flattened [nb * n_ext]
+        # digit rows; the bundles partition the ct limbs in order, so they
+        # take the target's rows 0 .. n_ct - 1
+        self.diag_rows = torch.from_numpy(np.concatenate(
+            [b * self.n_ext + np.arange(r0, r1) for b, (r0, r1, _, _) in enumerate(bundles)]
+        ).astype(np.int64)).to(dev)
         # contraction weights [G=nb, K=s_max, J=n_ext, 1] and the pre-scale
         # (per-(bundle, slot) inverse and modulus constants) [nb, s_max]
         self.bundle_w = to_tensor(bmat.transpose(0, 2, 1)[..., None], dev)
@@ -265,12 +273,12 @@ def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool,
     """Bundle-batched mod-up digit decomposition: [..., n_ct, N] target ->
     [..., n_bundles, n_ext, N] NTT-domain digit polynomials (ct_k).
 
-    Inverse-NTT (lazy), gather each bundle's limbs, pre-multiply by the
-    punctured inverses and CRT-contract onto all n_ext limbs in one
-    ``contract`` launch, forward-NTT (lazy when plan.lazy_digits), and keep
-    the NTT-form target on the bundle-diagonal limbs.
+    Inverse-NTT (lazy), take each bundle's limbs (a view when every bundle
+    is full, else one gather), pre-multiply by the punctured inverses and
+    CRT-contract onto all n_ext limbs in one ``contract`` launch,
+    forward-NTT (lazy when plan.lazy_digits), and copy the NTT-form target
+    onto the bundle-diagonal rows of that transform's output in place.
     """
-    n_ct, n_ext = plan.n_ct_rns, plan.n_ext
     N = target.shape[-1]
     batch = target.shape[:-2]
     target = target.contiguous()
@@ -282,10 +290,10 @@ def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool,
         ntt_target = ntt.forward_lazy(target, plan.ct_tables)
     else:
         ntt_target = ntt.forward(target, plan.ct_tables)
-    ntt_target_ext = F.pad(ntt_target, (0, 0, 0, n_ext - n_ct))
 
     nb, s_max = plan.bundle_shape
-    x_sel = power_target.index_select(-2, plan.bundle_sel)
+    x_sel = power_target if plan.bundle_sel_identity else \
+        power_target.index_select(-2, plan.bundle_sel)
     x_sel = x_sel.reshape(batch + (nb, s_max, 1, N))
     ext = plan.ext_limbs
     lifted = contract_mulmod_128(
@@ -293,10 +301,12 @@ def compute_modup_digits(target, plan: KeySwitchPlan, is_ntt_form: bool,
         ext.ratio1.reshape(-1), prescale=plan.bundle_prescale,
     )  # [..., nb, n_ext, N]
     if plan.lazy_digits:
-        lifted_ntt = ntt.forward_lazy(lifted, plan.ext_tables)
+        out = ntt.forward_lazy(lifted, plan.ext_tables)
     else:
-        lifted_ntt = ntt.forward(lifted, plan.ext_tables)
-    return torch.where(plan.bundle_diag, ntt_target_ext[..., None, :, :], lifted_ntt)
+        out = ntt.forward(lifted, plan.ext_tables)
+    out = out.contiguous()
+    out.view(batch + (nb * plan.n_ext, N)).index_copy_(-2, plan.diag_rows, ntt_target)
+    return out
 
 
 @span("keyswitch.moddown")

@@ -6,7 +6,8 @@ mode one launch a transform; the Galois kernel in all four modes at N=16,
 8192, 32768 and 65536 with 1, 3 and 8 tables; the contraction in every
 form of its callers, its broadcast mode and the edges of its launch
 geometry, the top of its lazy range, the key inner product's two
-components in one launch), and the fused step, the train step, the
+components in one launch), the mod-up against the CPU run in three
+launches, and the fused step, the train step, the
 hoisted rotations in both key forms, the BFV steps and rotations and the
 deep polynomial against the plain path, keygen, encryption and
 decryption at N=32768, the negacyclic monomial multiply (both modes), the
@@ -566,6 +567,38 @@ def test_contract_kernel_key_pair_is_one_launch(card):
     before = cuda.LAUNCHES.copy()
     T.build_ckks_mul_relin_rescale(ctx, fused=True)(x, x, rk)
     assert cuda.LAUNCHES["contract"] - before["contract"] == 4
+
+
+@pytest.mark.parametrize("bits,nsp", [((50, 40, 40, 50), 1), ((50, 40, 40, 50, 50), 2)],
+                         ids=["one_special", "short_bundle"])
+def test_modup_on_the_card_matches_cpu(card, bits, nsp):
+    """compute_modup_digits at N=8192 on the card equals the CPU plain run
+    bit for bit, both target forms, with every bundle full (the bundles'
+    limbs a view) and with a short last bundle (one gather), in exactly
+    three hand-written kernel launches (K1, K3, K1; the diagonal is an
+    in-place copy)."""
+    from gemini_seal_tpu_torch.ops.keyswitch import KeySwitchPlan, compute_modup_digits
+
+    n = 8192
+    plans = {}
+    for dev in ("cuda", "cpu"):
+        parms = T.EncryptionParameters(T.SchemeType.CKKS)
+        parms.set_poly_modulus_degree(n)
+        parms.set_coeff_modulus(T.CoeffModulus.create(n, list(bits)))
+        parms.set_n_special_primes(nsp)
+        ctx = T.SealContext(parms, sec_level=T.SecLevelType.none, device=dev)
+        plans[dev] = KeySwitchPlan(ctx, ctx.first_parms_id)
+    plan = plans["cuda"]
+    assert plan.bundle_sel_identity == (plan.n_ct_rns % nsp == 0)
+    rng = np.random.default_rng(31 + nsp)
+    target = _res(rng, plan.ext_moduli[:plan.n_ct_rns], (4,), n)
+    for is_ntt_form in (True, False):
+        before, ntts = cuda.thread_launches(), cuda.LAUNCHES["ntt"]
+        got = compute_modup_digits(to_tensor(target, card), plan, is_ntt_form)
+        assert cuda.thread_launches() - before == 3
+        assert cuda.LAUNCHES["ntt"] - ntts == 2
+        want = compute_modup_digits(to_tensor(target, "cpu"), plans["cpu"], is_ntt_form)
+        assert torch.equal(got.cpu(), want)
 
 
 # --- the BFV slice: K6 behz, K7 scale_round, K4 submul, and K1-K3 at the

@@ -8,6 +8,8 @@ equality.
 import jax
 import numpy as np
 import pytest
+import torch
+import torch.nn.functional as F
 
 import gemini_seal_tpu as J
 import gemini_seal_tpu_torch as T
@@ -78,11 +80,12 @@ def test_modup_inner_product_moddown(case):
     np.testing.assert_array_equal(want, to_numpy(got))
 
 
-def test_non_ntt_target_and_sequential_forms_raise():
+@pytest.mark.parametrize("case", list(CASES))
+def test_non_ntt_target_and_sequential_forms_raise(case):
     """The non-NTT (BFV-domain) mod-up is ported with its lazy forward lift,
     and the sequential (raw=False) inner product ends in rescale_special;
     a key with fewer bundles than the level needs raises."""
-    jctx, tctx = _contexts(*CASES["one_special"])
+    jctx, tctx = _contexts(*CASES[case])
     pid = jctx.first_parms_id
     jplan, tplan = jk.KeySwitchPlan(jctx, pid), tk.KeySwitchPlan(tctx, pid)
     rng = np.random.default_rng(7)
@@ -140,3 +143,72 @@ def test_rescale_special_switch_key_and_rotated_inner_product(case):
         for w, g in zip(w2, g2):
             np.testing.assert_array_equal(np.asarray(w), to_numpy(g))
     assert got[3][0].shape == (2, 3, jplan.n_ext, N)
+
+
+def _modup_pad_where(target, plan, is_ntt_form):
+    """The mod-up as it was written before it copied the target onto the
+    diagonal in place: the target padded to n_ext limbs, every bundle's
+    limbs gathered, and torch.where over the whole digit tensor."""
+    ntt = tk.IN_CORE_NTT
+    batch, N = target.shape[:-2], target.shape[-1]
+    power_target = ntt.inverse_lazy(target, plan.ct_tables) if is_ntt_form else target
+    if is_ntt_form:
+        ntt_target = target
+    elif plan.lazy_digits:
+        ntt_target = ntt.forward_lazy(target, plan.ct_tables)
+    else:
+        ntt_target = ntt.forward(target, plan.ct_tables)
+    ntt_target_ext = F.pad(ntt_target, (0, 0, 0, plan.n_ext - plan.n_ct_rns))
+    nb, s_max = plan.bundle_shape
+    x_sel = power_target.index_select(-2, plan.bundle_sel).reshape(batch + (nb, s_max, 1, N))
+    ext = plan.ext_limbs
+    lifted = tk.contract_mulmod_128(x_sel, plan.bundle_w, ext.p.reshape(-1),
+                                    ext.ratio0.reshape(-1), ext.ratio1.reshape(-1),
+                                    prescale=plan.bundle_prescale)
+    fwd = ntt.forward_lazy if plan.lazy_digits else ntt.forward
+    return torch.where(plan.bundle_diag, ntt_target_ext[..., None, :, :],
+                       fwd(lifted, plan.ext_tables))
+
+
+class _Refused:
+    """Stands in for a module whose named functions the mod-up must not
+    call; every other attribute is the module's."""
+
+    def __init__(self, module, *names):
+        self._module, self._names = module, names
+
+    def __getattr__(self, name):
+        if name in self._names:
+            raise AssertionError(f"the mod-up called {name}")
+        return getattr(self._module, name)
+
+
+@pytest.mark.parametrize("is_ntt_form", [True, False])
+def test_modup_writes_the_diagonal_in_place(monkeypatch, is_ntt_form):
+    """compute_modup_digits calls neither torch.where nor F.pad, gathers
+    only for a short last bundle, and equals the pad-and-where formula in
+    every row, in all three bundle shapes and both target forms (torch only:
+    the JAX package is the oracle of the tests above)."""
+    for case, (bits, nsp) in CASES.items():
+        parms = T.EncryptionParameters(T.SchemeType.CKKS)
+        parms.set_poly_modulus_degree(N)
+        parms.set_coeff_modulus(T.CoeffModulus.create(N, bits))
+        parms.set_n_special_primes(nsp)
+        ctx = T.SealContext(parms, sec_level=T.SecLevelType.none, device="cpu")
+        plan = tk.KeySwitchPlan(ctx, ctx.first_parms_id)
+        assert plan.bundle_sel_identity == (case != "short_bundle")
+        assert plan.diag_rows.tolist() == [
+            b * plan.n_ext + i for b in range(plan.n_bundles)
+            for i in range(b * nsp, min((b + 1) * nsp, plan.n_ct_rns))]
+        rng = np.random.default_rng(len(bits) * 10 + nsp + 2)
+        target = to_tensor(_residues(rng, plan.ext_moduli[: plan.n_ct_rns], (2, 2)), "cpu")
+        want = _modup_pad_where(target, plan, is_ntt_form)
+        with monkeypatch.context() as m:
+            m.setattr(tk, "torch", _Refused(torch, "where"))
+            m.setattr(tk, "F", _Refused(F, "pad"), raising=False)
+            if plan.bundle_sel_identity:
+                m.setattr(plan, "bundle_sel", None)     # a gather would raise
+            got = tk.compute_modup_digits(target, plan, is_ntt_form)
+        assert got.shape == (2, 2, plan.n_bundles, plan.n_ext, N)
+        assert got.is_contiguous()
+        assert torch.equal(got, want)
